@@ -1,0 +1,150 @@
+"""The port never imports jax.
+
+The machine with the GPU has no JAX installed, so no module of
+``manticoresearch_tpu_torch`` and not ``chip_smoke.py`` may import jax,
+directly or through a module of the JAX package whose import chain reaches
+it. The chain is computed from the JAX package's own module-level imports
+(an AST scan), not from a hard-coded list. A subprocess in which
+``import jax`` raises then imports the port and ``chip_smoke`` and runs one
+query on the CPU.
+
+Tolerance: exact (import graphs and docids).
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+_JAX_ROOTS = ("jax", "jaxlib")
+
+
+def _module_name(path: Path) -> str:
+    parts = path.relative_to(REPO).with_suffix("").parts
+    if parts[-1] == "__init__":
+        parts = parts[:-1]
+    return ".".join(parts)
+
+
+def _files(pkg: str) -> list[Path]:
+    return sorted((REPO / pkg).rglob("*.py"))
+
+
+def _imports(path: Path, module_level_only: bool) -> set[str]:
+    """Absolute names of the modules a file imports (with their parent
+    packages, which an import executes too)."""
+    name = _module_name(path)
+    package = name if path.name == "__init__.py" else name.rpartition(".")[0]
+    tree = ast.parse(path.read_text(), str(path))
+    if module_level_only:
+        nodes, todo = [], list(tree.body)
+        while todo:   # statements run at import: not function bodies
+            node = todo.pop()
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                continue
+            nodes.append(node)
+            for field in ("body", "orelse", "finalbody", "handlers"):
+                todo.extend(getattr(node, field, []) or [])
+    else:
+        nodes = list(ast.walk(tree))
+    out: set[str] = set()
+    for node in nodes:
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                up = package.split(".")
+                up = up[:len(up) - (node.level - 1)]
+                base = ".".join(up + ([node.module] if node.module else []))
+            mods = [base] + [f"{base}.{a.name}" for a in node.names]
+        else:
+            continue
+        for m in mods:
+            parts = m.split(".")
+            out.update(".".join(parts[:i]) for i in range(1, len(parts) + 1))
+    return out
+
+
+def _jax_reaching_modules() -> set[str]:
+    """Modules of the JAX package (and bench.py) whose import runs jax."""
+    files = _files("manticoresearch_tpu") + [REPO / "bench.py"]
+    graph = {}
+    for f in files:
+        name = _module_name(f)
+        deps = _imports(f, module_level_only=True)
+        parts = name.split(".")
+        deps |= {".".join(parts[:i]) for i in range(1, len(parts))}
+        graph[name] = deps
+    reach = {m for m, deps in graph.items()
+             if any(d.split(".")[0] in _JAX_ROOTS for d in deps)}
+    grew = True
+    while grew:
+        new = {m for m, deps in graph.items() if deps & reach} - reach
+        reach |= new
+        grew = bool(new)
+    return reach
+
+
+def test_jax_chain_is_computed():
+    reach = _jax_reaching_modules()
+    assert {"manticoresearch_tpu.ops.search", "manticoresearch_tpu.ops.pfor",
+            "manticoresearch_tpu.exec.searcher",
+            "manticoresearch_tpu.query.expr"} <= reach
+    assert not {"manticoresearch_tpu.query.planner",
+                "manticoresearch_tpu.index.builder",
+                "manticoresearch_tpu.ops.packed_store", "bench"} & reach
+
+
+def test_port_imports_nothing_that_reaches_jax():
+    reach = _jax_reaching_modules()
+    files = _files("manticoresearch_tpu_torch") + [REPO / "chip_smoke.py"]
+    assert len(files) >= 8
+    bad = {}
+    for f in files:
+        deps = _imports(f, module_level_only=False)
+        hits = sorted(d for d in deps
+                      if d.split(".")[0] in _JAX_ROOTS or d in reach)
+        if hits:
+            bad[str(f.relative_to(REPO))] = hits
+    assert not bad
+
+
+_NO_JAX_SCRIPT = r'''
+import importlib, importlib.abc, pkgutil, sys
+
+class _NoJax(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ImportError("jax is not installed here: " + name)
+        return None
+
+sys.meta_path.insert(0, _NoJax())
+import chip_smoke  # noqa: F401  (module only; main() is not run)
+import manticoresearch_tpu_torch as port
+for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    importlib.import_module(m.name)
+
+from manticoresearch_tpu.index.builder import IndexBuilder
+from manticoresearch_tpu.schema import AttrDef, AttrType, Schema
+from manticoresearch_tpu_torch.exec.searcher import SearchIndex, SearchQuery
+
+b = IndexBuilder(Schema(fields=["title"],
+                        attrs=[AttrDef("g", AttrType.UINT)]))
+b.add_documents([dict(id=i + 1, g=i, title=t) for i, t in enumerate(
+    ["red apple", "green apple pie", "blue sky", "apple apple"])])
+r = SearchIndex(b.build(), "cpu").search(SearchQuery(match="apple"))
+assert r.error is None, r.error
+assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+print("DOCIDS", sorted(m.docid for m in r.matches))
+'''
+
+
+def test_port_runs_where_jax_cannot_be_imported():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "DOCIDS [1, 2, 4]" in proc.stdout

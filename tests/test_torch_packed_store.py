@@ -1,0 +1,57 @@
+"""Port parity: the bit-plane decode of the packed posting store.
+
+``decode_words`` / ``decode_rowids`` of the port (their plain PyTorch
+version, which the wrappers take for CPU tensors) against the JAX
+package's XLA decode (``manticoresearch_tpu/ops/packed_store.py``), for
+every width class, on seeded random words with bit 31 set so the uint32
+bits held in int32 are exercised, and random bases so the int32 prefix
+sum wraps.
+
+Tolerance: exact. The results are integers and bit patterns.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from manticoresearch_tpu.ops import packed_store as jax_ps
+from manticoresearch_tpu_torch.ops import packed_store as ps
+
+torch.set_num_threads(2)
+
+
+def _inputs(c, nb, seed):
+    rng = np.random.RandomState(seed)
+    words = rng.randint(0, 2**32, (nb, ps.PLANE_WORDS * c), dtype=np.uint64)
+    words = (words | (1 << 31)).astype(np.uint32).view(np.int32)
+    base = rng.randint(-2**31, 2**31, nb, dtype=np.int64).astype(np.int32)
+    return words, base
+
+
+def test_reexports_match_jax_layout():
+    assert (ps.BLOCK, ps.PLANE_WORDS, ps.CLASSES, ps.PACK_MIN) == (
+        jax_ps.BLOCK, jax_ps.PLANE_WORDS, jax_ps.CLASSES, jax_ps.PACK_MIN)
+
+
+@pytest.mark.parametrize("c", [4, 8, 16, 32])
+@pytest.mark.parametrize("nb", [1, 7, 33])
+def test_decode_words_and_rowids_match_jax(c, nb):
+    words, base = _inputs(c, nb, seed=c * 100 + nb)
+    want_w = np.asarray(jax_ps.decode_words(jnp.asarray(words), c))
+    want_r = np.asarray(jax_ps.decode_rowids(jnp.asarray(words),
+                                             jnp.asarray(base), c))
+    before = ps.LAUNCHES.plain
+    got_w = ps.decode_words(torch.from_numpy(words), c)
+    got_r = ps.decode_rowids(torch.from_numpy(words), torch.from_numpy(base),
+                             c)
+    assert ps.LAUNCHES.plain == before + 2   # CPU tensors: plain path
+    assert got_w.dtype == got_r.dtype == torch.int32
+    assert got_w.shape == (nb, ps.BLOCK) and got_r.shape == (nb * ps.BLOCK,)
+    np.testing.assert_array_equal(got_w.numpy(), want_w)
+    np.testing.assert_array_equal(got_r.numpy(), want_r)
+
+
+def test_decode_refuses_other_devices():
+    words = torch.zeros((1, 16), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        ps.decode_words(words, 4)
