@@ -11,26 +11,37 @@ Phases; each raises on a failure, so the exit code is then not 0:
    the torch and CUDA versions.
 2. Build the CUDA kernels from ``manticoresearch_tpu_torch/csrc`` (timed).
 3. Plan the main path's queries: the bench corpus at 200k documents
-   (``bench.build_corpus(200_000, 50_000, 100)``), one batch of 64 config-1
-   queries and one of 64 config-2 queries, with terms picked as
-   ``bench.WorkloadGen`` picks them.
-4. Check the bit-plane decode kernel against its plain PyTorch version on
-   the card: every width class, with and without the prefix sum, random
-   words with bit 31 set, 1, 7 and the main path's number of blocks.
-   Bit-exact.
+   (``bench_corpus.build_corpus(200_000, 50_000, 100)``, the port's copy
+   of ``bench.build_corpus``), one batch of 64 config-1 queries and one of
+   64 config-2 queries, with terms picked as ``bench_corpus.WorkloadGen``
+   picks them.
+4. Check the grouped bit-plane decode kernel against its plain PyTorch
+   version on the card: each main-path batch's own work list; one work
+   list of every width class, with and without the prefix sum, windows of
+   1, 7 and the main path's number of blocks and one of 262144 blocks,
+   random words with bit 31 set and random bases; then each class through
+   the one-window wrappers; then 2148 small windows, more than the kernel
+   keeps in shared memory. Bit-exact. A misaligned window must raise.
 5. Run the main path: both batches through ``SearchIndex.search_batch``
-   on ``device="cuda"``, with the kernel launch counters set to 0 just
-   before and read just after. The kernel must have launched, the plain
-   decode must not have run.
+   on ``device="cuda"``, with the launch counters set to 0 just before and
+   read just after. Each ``search_batch`` must make exactly one kernel
+   launch, and the plain decode must not have run.
 6. Check the results: every docid, weight, total, total_found and word
    stat equal to the same queries on ``device="cpu"``; the single-term
    queries' top 10 equal to a host numpy model of the reference scoring
    (recall@10 = 1.0, as ``bench.parity_recall_at_10``).
-7. Time the kernel against its plain version at the main path's shape
-   and at 65536 blocks, and each batch again with everything warm.
+7. Time each batch again with everything warm (and once under
+   ``torch.profiler``: device time, busy share, kernel launches), and the
+   kernel against its plain version: at the main path's shape (each
+   batch's work list, with the 50 MB L2 flushed before each launch), at
+   65536 blocks and at 262144 blocks of the main class (202 MB at c=16:
+   beyond L2).
+   The kernel's time is its device time from ``torch.profiler``; the
+   bound is the bytes it must move over 3.35 TB/s.
 
-The last two lines of standard output are one JSON object with the
-kernels' numbers, then ``{"ok": true, "device": {...}}``.
+The last three lines of standard output are one JSON object with the
+kernels' numbers, the card's name and power limit, then
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -43,27 +54,34 @@ from collections import Counter
 import numpy as np
 import torch
 
-import bench
-from manticoresearch_tpu.query.planner import AttrFilterDef
+from manticoresearch_tpu_torch import bench_corpus
 from manticoresearch_tpu_torch.exec.searcher import SearchIndex, SearchQuery
 from manticoresearch_tpu_torch.ops import _build
 from manticoresearch_tpu_torch.ops import packed_store as ps
+from manticoresearch_tpu_torch.ops.search import packed_windows
+from manticoresearch_tpu_torch.query.planner import AttrFilterDef
 
 N_DOCS, VOCAB, AVG_LEN = 200_000, 50_000, 100
 BATCH = 64
+WARM_RUNS = 5
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory, published peak
 KERNEL_SOURCE = "manticoresearch_tpu_torch/csrc/bitplane_decode.cu"
 KERNEL_REPLACES = "manticoresearch_tpu/ops/pfor.py:109"
+KERNEL_EVENT = "bitplane_decode_grouped"
+KERNEL_SMEM_ITEMS = 2048   # csrc/bitplane_decode.cu: kSmemItems
 
 
 # --------------------------------------------------------------------------
-# workload: bench.WorkloadGen's config 1 and 2, with the port's SearchQuery
+# workload: WorkloadGen's config 1 and 2
 # --------------------------------------------------------------------------
-def config1_queries(gen: bench.WorkloadGen, n: int) -> list[SearchQuery]:
+def config1_queries(gen: bench_corpus.WorkloadGen,
+                    n: int) -> list[SearchQuery]:
     """Single-term MATCH() BM25 top-10 (the measured twin of each draw)."""
     return [SearchQuery(match=gen.term()[1], limit=10) for _ in range(n)]
 
 
-def config2_queries(gen: bench.WorkloadGen, n: int) -> list[SearchQuery]:
+def config2_queries(gen: bench_corpus.WorkloadGen,
+                    n: int) -> list[SearchQuery]:
     """Single term 40%, AND 30%, OR 20%, AND + year range filter 10%."""
     out = []
     for _ in range(n):
@@ -119,44 +137,110 @@ def _summary(r) -> tuple:
 # --------------------------------------------------------------------------
 # kernel checks and timing
 # --------------------------------------------------------------------------
-def _random_block_inputs(c: int, nb: int, gen: torch.Generator):
+def _random_window(c: int, nb: int, prefix: bool, gen: torch.Generator):
     words = torch.randint(0, 2**32, (nb, ps.PLANE_WORDS * c), generator=gen,
                           dtype=torch.int64)
-    words = ps.wrap_i32(words | (1 << 31))
-    base = ps.wrap_i32(torch.randint(0, 2**32, (nb,), generator=gen,
-                                     dtype=torch.int64))
-    return words.cuda(), base.cuda()
+    words = ps.wrap_i32(words | (1 << 31)).cuda()
+    base = None
+    if prefix:
+        base = ps.wrap_i32(torch.randint(0, 2**32, (nb,), generator=gen,
+                                         dtype=torch.int64)).cuda()
+    return words, base, c
 
 
-def check_decode_kernel(nbs: list[int]) -> int:
-    """Kernel vs plain version on the card; returns the max abs error
-    (must be 0) over every class, prefix mode and block count."""
-    gen = torch.Generator().manual_seed(1234)
+def plain_grouped(items: list) -> torch.Tensor:
+    """The plain PyTorch version of one grouped decode, on the items'
+    device."""
+    return torch.cat([ps.decode_words_ref(w, c) if b is None
+                      else ps.decode_rowids_ref(w, b, c).reshape(-1, ps.BLOCK)
+                      for w, b, c in items])
+
+
+def check_decode_kernel(nbs: list[int], big_c: int, big_nb: int,
+                        batch_items: dict) -> int:
+    """Grouped kernel vs plain version on the card; returns the max abs
+    error (must be 0) over every window of a mixed work list, and over
+    each main-path batch's own work list."""
     max_err = 0
+    for name, items in batch_items.items():
+        got = ps.decode_grouped(items)[0]
+        want = plain_grouped(items)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        max_err = max(max_err, err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"bitplane_decode on the {name} batch's "
+                                 f"work list: kernel != plain version (max "
+                                 f"abs err {err})")
+        print(f"  grouped bitplane_decode, {name} batch's work list "
+              f"({len(items)} windows): bit-exact")
+    gen = torch.Generator().manual_seed(1234)
+    items = [_random_window(c, nb, prefix, gen)
+             for c in ps.CLASSES for nb in nbs for prefix in (False, True)]
+    items.append(_random_window(big_c, big_nb, True, gen))
+    got, offsets = ps.decode_grouped(items)
+    torch.cuda.synchronize()
+    for i, (w, b, c) in enumerate(items):
+        want = plain_grouped([(w, b, c)])
+        part = got[offsets[i]:offsets[i + 1]]
+        err = int((part.to(torch.int64) - want.to(torch.int64)).abs().max())
+        max_err = max(max_err, err)
+        if not torch.equal(part, want):
+            raise AssertionError(
+                f"bitplane_decode window {i} c={c} nb={w.shape[0]} "
+                f"prefix={b is not None}: kernel != plain version "
+                f"(max abs err {err})")
+    print(f"  grouped bitplane_decode: {len(items)} windows, "
+          f"{int(offsets[-1])} blocks, classes {ps.CLASSES}, prefix on "
+          f"and off, nb {sorted(set(nbs))} and {big_nb}: bit-exact")
     for c in ps.CLASSES:
-        for nb in nbs:
-            words, base = _random_block_inputs(c, nb, gen)
-            for prefix in (False, True):
-                if prefix:
-                    got = ps.decode_rowids(words, base, c)
-                    want = ps.decode_rowids_ref(words, base, c)
-                else:
-                    got = ps.decode_words(words, c)
-                    want = ps.decode_words_ref(words, c)
-                torch.cuda.synchronize()
-                err = int((got.to(torch.int64) - want.to(torch.int64))
-                          .abs().max())
-                max_err = max(max_err, err)
-                if not torch.equal(got, want):
-                    raise AssertionError(
-                        f"bitplane_decode c={c} nb={nb} prefix={prefix}: "
-                        f"kernel != plain version (max abs err {err})")
-            print(f"  bitplane_decode c={c:2d} nb={nb:5d}: bit-exact "
-                  "(words, rowids)")
+        w, b, _ = _random_window(c, 7, True, gen)
+        one_w = ps.decode_words(w, c)
+        one_r = ps.decode_rowids(w, b, c)
+        torch.cuda.synchronize()
+        if not (torch.equal(one_w, ps.decode_words_ref(w, c)) and
+                torch.equal(one_r, ps.decode_rowids_ref(w, b, c))):
+            raise AssertionError(f"one-window decode c={c}: kernel != "
+                                 "plain version")
+    print("  one-window decode_words / decode_rowids, every class: "
+          "bit-exact")
+    # more windows than the kernel keeps in shared memory: the entry
+    # search reads the work list from device memory instead
+    many = [_random_window(ps.CLASSES[i % 4], 1 + i % 3, i % 2 == 0, gen)
+            for i in range(KERNEL_SMEM_ITEMS + 100)]
+    got = ps.decode_grouped(many)[0]
+    want = plain_grouped(many)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"bitplane_decode on {len(many)} windows: "
+                             "kernel != plain version")
+    print(f"  grouped bitplane_decode: {len(many)} windows (beyond the "
+          f"{KERNEL_SMEM_ITEMS} kept in shared memory): bit-exact")
+    # a window whose words do not start at a multiple of 16 bytes
+    flat = torch.zeros(1 + ps.PLANE_WORDS * 4, dtype=torch.int32,
+                       device="cuda")
+    try:
+        ps.decode_grouped([(flat[1:].view(1, ps.PLANE_WORDS * 4), None, 4)])
+    except ValueError:
+        print("  a misaligned window raises ValueError")
+    else:
+        raise AssertionError("a misaligned window was decoded")
     return max_err
 
 
-def _time_ms(fn, iters: int) -> float:
+def decode_bytes(items: list) -> int:
+    """Bytes one grouped decode must move: each window's words (and bases)
+    read once, every output block written once, the work list read once."""
+    total = 0
+    for w, b, c in items:
+        nb = w.shape[0]
+        total += nb * (ps.PLANE_WORDS * c * 4 + ps.BLOCK * 4)
+        if b is not None:
+            total += nb * 4
+    return total + 32 * len(items)
+
+
+def _event_ms(fn, iters: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -167,30 +251,77 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def time_decode(c: int, nb: int, prefix: bool, iters: int = 200):
-    """(kernel ms, plain ms) per call, measured in turns: plain, kernel,
-    kernel, plain."""
-    words, base = _random_block_inputs(c, nb, torch.Generator().manual_seed(7))
-    if prefix:
-        def kern():
-            ps.decode_rowids(words, base, c)
-
-        def plain():
-            ps.decode_rowids_ref(words, base, c)
-    else:
-        def kern():
-            ps.decode_words(words, c)
-
-        def plain():
-            ps.decode_words_ref(words, c)
-    for f in (kern, plain):
-        f()
+def kernel_device_ms(items: list, iters: int, flush: bool) -> float:
+    """Device time of one grouped launch (torch.profiler), optionally with
+    the L2 cache flushed by a 64 MB write before each launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    scrub = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    ps.decode_grouped(items)
     torch.cuda.synchronize()
-    p1 = _time_ms(plain, iters)
-    k1 = _time_ms(kern, iters)
-    k2 = _time_ms(kern, iters)
-    p2 = _time_ms(plain, iters)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if flush:
+                scrub.fill_(1)
+            ps.decode_grouped(items)
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and KERNEL_EVENT in e.name]
+    if not us or min(us) <= 0:
+        raise AssertionError(f"the profiler saw no {KERNEL_EVENT} launches "
+                             "on the device")
+    return sum(us) / len(us) / 1e3
+
+
+def time_decode(name: str, items: list, iters: int, flush: bool) -> dict:
+    """Kernel device time, per-call times of the wrapper and of the plain
+    version (CUDA events over back-to-back calls, in turns plain, kernel,
+    kernel, plain), bytes and bound."""
+    byts = decode_bytes(items)
+    for fn in (lambda: ps.decode_grouped(items), lambda: plain_grouped(items)):
+        fn()
+    torch.cuda.synchronize()
+    p1 = _event_ms(lambda: plain_grouped(items), max(iters // 4, 3))
+    k1 = _event_ms(lambda: ps.decode_grouped(items), iters)
+    k2 = _event_ms(lambda: ps.decode_grouped(items), iters)
+    p2 = _event_ms(lambda: plain_grouped(items), max(iters // 4, 3))
+    dev_ms = kernel_device_ms(items, iters, flush)
+    bound_ms = byts / HBM_BYTES_PER_S * 1e3
+    blocks = sum(w.shape[0] for w, _, _ in items)
+    r = dict(ms=dev_ms, call_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+             bound_ms=bound_ms, bytes=byts, blocks=blocks)
+    print(f"  K1 {name}: {len(items)} windows, {blocks} blocks, "
+          f"{byts / 1e6:.3f} MB: device {dev_ms * 1e3:.2f} us "
+          f"({byts / (dev_ms * 1e-3) / 1e9:.0f} GB/s, "
+          f"{bound_ms / dev_ms:.3f} of the bound {bound_ms * 1e3:.2f} us); "
+          f"per call {r['call_ms'] * 1e3:.2f} us; plain "
+          f"{r['plain_ms'] * 1e3:.2f} us"
+          f"{'; L2 flushed before each launch' if flush else ''}")
+    return r
+
+
+def profile_batch(idx: SearchIndex, queries: list[SearchQuery]) -> dict:
+    """One warm batch under torch.profiler: its wall time, the device time
+    of every kernel and copy in it (one stream, so they do not overlap),
+    the device busy share, the kernel launches and K1's device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        idx.search_batch(queries)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in on_device) / 1e3
+    k1_ms = sum(e.time_range.elapsed_us() for e in on_device
+                if KERNEL_EVENT in e.name) / 1e3
+    launches = sum(1 for e in events
+                   if e.name.startswith("cudaLaunchKernel"))
+    return dict(wall_ms=wall_ms, device_ms=dev_ms,
+                busy=dev_ms / wall_ms, launches=launches, k1_ms=k1_ms)
 
 
 # --------------------------------------------------------------------------
@@ -218,7 +349,7 @@ def main() -> int:
 
     # 3. corpus, indexes, plans
     t0 = time.perf_counter()
-    packed = bench.build_corpus(N_DOCS, VOCAB, AVG_LEN)
+    packed = bench_corpus.build_corpus(N_DOCS, VOCAB, AVG_LEN)
     print(f"corpus: {packed.n_docs} docs, {packed.n_postings} postings, "
           f"{len(packed.hit_packed)} hits, built in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -227,39 +358,62 @@ def main() -> int:
     cpu = SearchIndex(packed, device="cpu")
     torch.cuda.synchronize()
     print(f"upload (cuda + cpu): {time.perf_counter() - t0:.1f} s")
-    gen = bench.WorkloadGen(np.random.RandomState(7), VOCAB, packed)
+    gen = bench_corpus.WorkloadGen(np.random.RandomState(7), VOCAB, packed)
     batches = {"config1": config1_queries(gen, BATCH),
                "config2": config2_queries(gen, BATCH)}
-    plans = [gpu.plan(q) for qs in batches.values() for q in qs]
-    rankers = Counter(cq.sig.ranker for cq in plans)
+    plans = {name: [gpu.plan(q) for q in qs] for name, qs in batches.items()}
+    all_plans = [cq for cqs in plans.values() for cq in cqs]
+    rankers = Counter(cq.sig.ranker for cq in all_plans)
     if set(rankers) != {"ws_bm25", "proximity_bm25"}:
         raise AssertionError(f"unexpected effective rankers {rankers}")
     slot_blocks = Counter(
         (cq.sig.slot_packed[s][0], cq.slot_pb[s] // ps.BLOCK)
-        for cq in plans for s in range(cq.sig.n_slots)
+        for cq in all_plans for s in range(cq.sig.n_slots)
         if cq.sig.slot_packed[s][0])
     if not slot_blocks:
         raise AssertionError("no packed term slot on the main path")
     (main_c, main_nb), _ = slot_blocks.most_common(1)[0]
     print(f"plans: rankers {dict(rankers)}; packed slots by "
           f"(rowid class, blocks): {dict(slot_blocks)}")
+    data = gpu.device.data_pytree()
+    batch_items = {name: [w for cq in cqs for w in packed_windows(
+        cq.sig, cq.slot_pb, data, cq.runtime)] for name, cqs in plans.items()}
+    for name, items in batch_items.items():
+        nb = sum(w.shape[0] for w, _, _ in items)
+        print(f"{name}: one grouped decode of {len(items)} windows, {nb} "
+              f"blocks, output buffer {nb * 512 / 2**20:.2f} MiB")
 
     # 4. kernel vs plain version
-    max_err = check_decode_kernel(sorted({1, 7, main_nb}))
+    big_nb = 1 << 18
+    max_err = check_decode_kernel(sorted({1, 7, main_nb}), main_c, big_nb,
+                                  batch_items)
 
     # 5. the main path on the card, counted
     ps.LAUNCHES.reset()
     gpu_results = {}
     wall = {}
+    per_batch = {}
+    peak = {}
     for name, qs in batches.items():
+        before = ps.LAUNCHES.kernel
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         gpu_results[name] = gpu.search_batch(qs)
+        torch.cuda.synchronize()
         wall[name] = time.perf_counter() - t0
+        per_batch[name] = ps.LAUNCHES.kernel - before
+        peak[name] = torch.cuda.max_memory_allocated() - base_mem
     launches, plain = ps.LAUNCHES.kernel, ps.LAUNCHES.plain
-    print(f"main path on cuda: bitplane_decode launches {launches}, "
-          f"plain decodes {plain}")
-    if launches <= 0 or plain != 0:
-        raise AssertionError("the main path did not run through the kernel")
+    blocks = ps.LAUNCHES.blocks
+    print(f"main path on cuda: bitplane_decode launches {launches} "
+          f"({per_batch} per search_batch), {blocks} blocks decoded, "
+          f"plain decodes {plain}; peak device memory above the index "
+          f"per batch (MiB): "
+          f"{ {k: round(v / 2**20, 2) for k, v in peak.items()} }")
+    if plain != 0 or any(n != 1 for n in per_batch.values()):
+        raise AssertionError("the main path did not make exactly one kernel "
+                             "launch per search_batch")
 
     # 6. results: equal to the CPU port, recall@10 vs the host model
     n_single = 0
@@ -290,34 +444,39 @@ def main() -> int:
 
     # 7. timing
     for name, qs in batches.items():
-        t0 = time.perf_counter()
-        gpu.search_batch(qs)
-        warm = time.perf_counter() - t0
+        warm = []
+        for _ in range(WARM_RUNS):
+            t0 = time.perf_counter()
+            gpu.search_batch(qs)
+            torch.cuda.synchronize()
+            warm.append(round((time.perf_counter() - t0) * 1e3, 2))
         print(f"{name}: batch of {len(qs)} on cuda: first run "
-              f"{wall[name] * 1e3:.1f} ms, warm run {warm * 1e3:.1f} ms")
-    timings = {}
-    for c in ps.CLASSES:
-        for prefix in (True, False):
-            k_ms, p_ms = time_decode(c, main_nb, prefix)
-            timings[(c, prefix)] = (k_ms, p_ms)
-            print(f"  decode c={c:2d} nb={main_nb} "
-                  f"{'rowids' if prefix else 'words '}: kernel "
-                  f"{k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us")
-    k_ms, p_ms = timings[(main_c, True)]
-    # at the main path's few blocks a call is bound by the host's launch
-    # cost; a large call shows the kernel against device-memory bandwidth
-    big = 1 << 16
-    kb_ms, pb_ms = time_decode(main_c, big, True, iters=20)
-    moved = big * (ps.PLANE_WORDS * main_c * 4 + 4 + ps.BLOCK * 4)
-    print(f"  decode c={main_c} nb={big} rowids: kernel {kb_ms * 1e3:.1f} us "
-          f"({moved / (kb_ms * 1e-3) / 1e9:.0f} GB/s of words, bases and "
-          f"rowids), plain {pb_ms * 1e3:.1f} us")
+              f"{wall[name] * 1e3:.1f} ms, warm runs (ms) {warm}")
+        prof = profile_batch(gpu, qs)
+        print(f"{name}: one warm batch under the profiler: wall "
+              f"{prof['wall_ms']:.2f} ms, device time {prof['device_ms']:.3f}"
+              f" ms (busy share {prof['busy']:.3f}), {prof['launches']} "
+              f"kernel launches, K1 {prof['k1_ms'] * 1e3:.2f} us")
+    main = time_decode("main path (config-2 batch)", batch_items["config2"],
+                       iters=100, flush=True)
+    time_decode("main path (config-1 batch)", batch_items["config1"],
+                iters=100, flush=True)
+    gen = torch.Generator().manual_seed(7)
+    time_decode(f"c={main_c} 65536 blocks rowids",
+                [_random_window(main_c, 1 << 16, True, gen)], iters=50,
+                flush=True)
+    time_decode(f"c={main_c} {big_nb} blocks rowids (beyond L2)",
+                [_random_window(main_c, big_nb, True, gen)], iters=20,
+                flush=False)
 
-    print(f"card: {smi}")
     print(json.dumps({"kernels": [{
         "name": "bitplane_decode", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms}]}))
+        "launches_per_batch": launches / len(batches),
+        "max_abs_err": max_err, "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": "bytes", "library_ms": None}]}))
+    print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))

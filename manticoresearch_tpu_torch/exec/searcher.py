@@ -1,11 +1,11 @@
 """Single-index search on PyTorch: plan, run, hydrate.
 
 Counterpart of ``manticoresearch_tpu/exec/searcher.py`` for the main path:
-parse and plan on the host with the JAX package's own (JAX-free) parser
-and planner, run ``ops.search`` on the index's device, hydrate the result.
-``SearchQuery``, ``Match``, ``WordStat`` and ``SearchResult`` are declared
-again here with the same fields, because the JAX module that defines them
-imports jax.
+parse and plan on the host with the port's copies of the JAX package's
+parser and planner, decode every packed posting window of the batch in one
+grouped call, run ``ops.search`` on the index's device, hydrate the
+result. ``SearchQuery``, ``Match``, ``WordStat`` and ``SearchResult`` have
+the fields of the JAX module's.
 
 Not in this slice, each raising ``NotImplementedError``: GROUP BY, JSON
 ORDER BY, late (expression) filters, ``ranker=expr`` / ``sph04`` and
@@ -21,16 +21,15 @@ from typing import Any
 import numpy as np
 import torch
 
-from manticoresearch_tpu.index.builder import PackedIndex
-from manticoresearch_tpu.query.explain import render_plan
-from manticoresearch_tpu.query.ftparser import FtQueryParser
-from manticoresearch_tpu.query.planner import (AttrFilterDef, CompiledQuery,
-                                               plan_query)
-from manticoresearch_tpu.text.dictionary import Dictionary
-from manticoresearch_tpu.text.tokenizer import Tokenizer
-
+from ..index.builder import PackedIndex
 from ..ops.device_index import upload
-from ..ops.search import INT32_MIN, build_kernel, pack_output
+from ..ops.packed_store import decode_grouped
+from ..ops.search import INT32_MIN, build_kernel, pack_output, packed_windows
+from ..query.explain import render_plan
+from ..query.ftparser import FtQueryParser
+from ..query.planner import AttrFilterDef, CompiledQuery, plan_query
+from ..text.dictionary import Dictionary
+from ..text.tokenizer import Tokenizer
 
 
 @dataclass
@@ -99,8 +98,8 @@ def _wants_packedfactors(select) -> bool:
 
 def _check_query_in_slice(q: SearchQuery, schema) -> None:
     """Refuse, before planning, what the port does not run. ranker=expr
-    (and sph04, and PACKEDFACTORS() which forces it) must stop here: the
-    shared planner would import the JAX expression module for it."""
+    (and sph04, and PACKEDFACTORS() which forces it) stops here: the
+    port's planner has no expression ranker."""
     def no(feature: str):
         raise NotImplementedError(f"{feature} is not ported to the PyTorch "
                                   "search path yet")
@@ -132,10 +131,10 @@ def _resolve_order(q: SearchQuery, schema) -> tuple:
 
 
 class SearchIndex:
-    """A searchable index: host PackedIndex + tensors on ``device`` + the
-    text pipeline. ``device`` has no default: pass "cuda" or "cpu"."""
+    """A searchable index: host PackedIndex + tensors on ``device`` (the
+    card unless the caller asks for "cpu") + the text pipeline."""
 
-    def __init__(self, packed: PackedIndex, device):
+    def __init__(self, packed: PackedIndex, device="cuda"):
         self.packed = packed
         self.device = upload(packed, device)
         self.tokenizer = Tokenizer(packed.tokenizer_settings)
@@ -206,6 +205,24 @@ class SearchIndex:
                             max(self.schema.n_fields, 1),
                             cq.slot_pb, cq.slot_hb)
 
+    def _decode_windows(self, data: dict,
+                        plans: list[CompiledQuery]) -> list[list]:
+        """Every packed posting window the plans' programs read, decoded in
+        one ``decode_grouped`` call; -> per plan, its program's
+        ``decoded`` slices in order."""
+        wins = [packed_windows(cq.sig, cq.slot_pb, data, cq.runtime)
+                for cq in plans]
+        items = [w for ws in wins for w in ws]
+        if not items:
+            return [[] for _ in plans]
+        out, offsets = decode_grouped(items)
+        flat = [part.view(-1) for part in out.split(np.diff(offsets).tolist())]
+        per_plan, j = [], 0
+        for ws in wins:
+            per_plan.append(flat[j:j + len(ws)])
+            j += len(ws)
+        return per_plan
+
     def search(self, q: SearchQuery) -> SearchResult:
         _check_query_in_slice(q, self.schema)
         t0 = time.perf_counter()
@@ -217,7 +234,9 @@ class SearchIndex:
         prof.append(("parse_and_plan", time.perf_counter() - t0))
         fn = self._program(cq)
         t1 = time.perf_counter()
-        row = pack_output(fn(self.device.data_pytree(), cq.runtime))
+        data = self.device.data_pytree()
+        decoded = self._decode_windows(data, [cq])[0]
+        row = pack_output(fn(data, cq.runtime, decoded))
         row = row.cpu().numpy()
         prof.append(("device_exec_fetch", time.perf_counter() - t1))
         t2 = time.perf_counter()
@@ -230,7 +249,8 @@ class SearchIndex:
         return res
 
     def search_batch(self, queries: list[SearchQuery]) -> list[SearchResult]:
-        """Queries grouped by plan shape run group by group; every group's
+        """One grouped decode of every query's packed posting windows, then
+        the queries grouped by plan shape run group by group; every group's
         [B, 2k+1] result goes into one tensor, fetched to the host once."""
         t0 = time.perf_counter()
         results: list[SearchResult | None] = [None] * len(queries)
@@ -248,11 +268,15 @@ class SearchIndex:
             groups.setdefault(key, []).append(i)
 
         data = self.device.data_pytree()
+        order = [i for idxs in groups.values() for i in idxs]
+        decoded = dict(zip(order, self._decode_windows(
+            data, [plans[i] for i in order])))
         outs = []
         for idxs in groups.values():
             fn = self._program(plans[idxs[0]])
             outs.append(torch.stack(
-                [pack_output(fn(data, plans[i].runtime)) for i in idxs]))
+                [pack_output(fn(data, plans[i].runtime, decoded[i]))
+                 for i in idxs]))
         if not outs:
             return results  # type: ignore[return-value]
         flat = torch.cat([o.reshape(-1) for o in outs]).cpu().numpy()

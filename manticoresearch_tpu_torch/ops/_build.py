@@ -57,10 +57,9 @@ def _digest(srcs: list[Path]) -> str:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    fn = lib.mt_bitplane_decode
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+    fn = lib.mt_bitplane_decode_grouped
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                   ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 

@@ -13,14 +13,18 @@ and ``window`` checks that it is.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import copy
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
 
-from manticoresearch_tpu.index.builder import PackedIndex
-from manticoresearch_tpu.ops.packed_store import BLOCK, CLASSES, PLANE_WORDS
-from manticoresearch_tpu.query.planner import _next_pow4
+from ..index.builder import PackedIndex
+from ..query.planner import _next_pow4
+from ..schema import AttrDef, AttrType, Schema
+from ..text.dictionary import DictSettings
+from ..text.tokenizer import TokenizerSettings
+from .packed_store import BLOCK, CLASSES, PLANE_WORDS
 
 _DICT_KEYS = ("attrs", "attr_perm", "mva_offsets", "mva_values")
 
@@ -223,3 +227,31 @@ def upload(packed: PackedIndex, device) -> DeviceIndex:
     ``device_index.upload``)."""
     return from_jax_arrays(host_arrays(packed), packed.n_docs,
                            packed.schema.n_fields, device)
+
+
+def from_jax_packed(jax_packed) -> PackedIndex:
+    """The port's PackedIndex from the JAX package's (every array, list and
+    setting copied; the schema and settings rebuilt as the port's own
+    classes), so that both packages can run on identical data without the
+    port's code meeting a class of the JAX package."""
+    js = jax_packed.schema
+    schema = Schema(fields=list(js.fields),
+                    attrs=[AttrDef(a.name, AttrType(a.type.value))
+                           for a in js.attrs])
+
+    def settings(cls, src):
+        return cls(**{f.name: copy.deepcopy(getattr(src, f.name))
+                      for f in fields(cls)})
+
+    kw = {}
+    for f in fields(PackedIndex):
+        src = getattr(jax_packed, f.name)
+        if f.name == "schema":
+            kw[f.name] = schema
+        elif f.name == "tokenizer_settings":
+            kw[f.name] = settings(TokenizerSettings, src)
+        elif f.name == "dict_settings":
+            kw[f.name] = settings(DictSettings, src)
+        else:
+            kw[f.name] = copy.deepcopy(src)
+    return PackedIndex(**kw)

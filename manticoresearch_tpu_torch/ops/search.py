@@ -7,9 +7,12 @@ N+1 rows, row N being the dead pad sink. Every plan shape outside that
 slice raises ``NotImplementedError`` naming the feature (see
 ``check_in_slice``); nothing falls back to other code.
 
-Packed term slots decode their rowid, tf and fieldmask planes with
-``packed_store.decode_rowids`` / ``decode_words`` (the CUDA bit-plane
-kernel on the card). The rest is eager PyTorch ops.
+The program reads each packed term slot's rowid, tf and fieldmask planes
+decoded. ``packed_windows`` lists the packed windows a query's program
+reads, so that the caller can decode the windows of a whole batch in one
+``packed_store.decode_grouped`` call (one launch of the CUDA bit-plane
+kernel on the card) and hand each program its slices. The rest is eager
+PyTorch ops.
 
 Integer weights must equal the JAX package's bit for bit, so:
 - every float step is its own eager op (no fused multiply-add), and the
@@ -27,11 +30,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from manticoresearch_tpu.query.plan import (RANKERS_WITH_HITS, PlanSig,
-                                            positive_slots, ranker_term_slots)
-
+from ..query.plan import (RANKERS_WITH_HITS, PlanSig, positive_slots,
+                          ranker_term_slots)
 from .device_index import window
-from .packed_store import BLOCK, decode_rowids, decode_words, wrap_i32
+from .packed_store import BLOCK, wrap_i32
 
 INT32_MIN = -(2**31)
 INT32_MAX = 2**31 - 1
@@ -149,44 +151,79 @@ def _float_order_key(v: torch.Tensor) -> torch.Tensor:
     return b ^ ((b >> 31) & 0x7FFFFFFF)
 
 
+_NEEDS_FIELDMASK = ("ws_bm25", "ws", "fieldmask")
+_WORDS_KEYS = ("pkrw_w", "pktf_w", "pkfm_w")   # by window kind
+
+
+def _pos_slots(sig: PlanSig) -> set:
+    return positive_slots(sig.expr) if sig.expr[0] != "all" else set()
+
+
+def window_kinds(sig: PlanSig) -> list[tuple[int, int]]:
+    """The (slot, kind) of every packed window the program reads, in
+    order; kind 0 is the rowid stream, 1 the tf planes, 2 the fieldmask
+    planes. tf and fieldmask are read for positive slots only, fieldmask
+    only under the rankers that use it."""
+    pos = _pos_slots(sig)
+    fm = sig.ranker in _NEEDS_FIELDMASK
+    out = []
+    for s, packed in enumerate(sig.slot_packed):
+        for kind, used in ((0, True), (1, s in pos), (2, fm and s in pos)):
+            if used and packed[kind]:
+                out.append((s, kind))
+    return out
+
+
+def packed_windows(sig: PlanSig, slot_pb: tuple, data: dict,
+                   rt: dict) -> list[tuple]:
+    """The decode windows of one query's program, in ``window_kinds``
+    order: (words [nb, 4c], base [nb] for the rowid stream else None, c),
+    each a view into the device index. ``decode_grouped`` of these gives
+    the slices the program takes as ``decoded``."""
+    out = []
+    for s, kind in window_kinds(sig):
+        c = sig.slot_packed[s][kind]
+        nb = max(slot_pb[s] // BLOCK, 1)
+        p0 = int(rt["pk_starts"][s, kind])
+        words = window(data[f"{_WORDS_KEYS[kind]}_{c}"], p0, nb)
+        base = window(data[f"pkrw_b_{c}"], p0, nb) if kind == 0 else None
+        out.append((words, base, c))
+    return out
+
+
 def build_match_core(sig: PlanSig, n_rows: int, n_fields: int,
                      slot_pb: tuple, slot_hb: tuple):
-    """(data, rt) -> (eligible bool[N+1], weight i32[N+1], rows i32[N+1]).
+    """(data, rt, decoded) -> (eligible bool[N+1], weight i32[N+1],
+    rows i32[N+1]).
 
     ``data`` is ``DeviceIndex.data_pytree()``; ``rt`` is the planner's
     runtime dict of numpy arrays (slot windows are read on the host);
-    slot_pb / slot_hb are the planner's per-slot posting / hit window
-    sizes."""
+    ``decoded`` holds the decoded values of the query's ``packed_windows``
+    in their order, each flat int32 [nb * 128]; slot_pb / slot_hb are the
+    planner's per-slot posting / hit window sizes."""
     check_in_slice(sig, n_fields)
     N = n_rows
     F = n_fields
     S = sig.n_slots
     W = max(1, (S + 31) // 32)
     size = N + 1
-    need_fieldmask = sig.ranker in ("ws_bm25", "ws", "fieldmask")
+    need_fieldmask = sig.ranker in _NEEDS_FIELDMASK
     use_lcs = sig.ranker in RANKERS_WITH_HITS
-    pos_slots = positive_slots(sig.expr) if sig.expr[0] != "all" else set()
+    pos_slots = _pos_slots(sig)
     rk_slots = ranker_term_slots(sig.expr) if use_lcs else ()
     slot_packed = sig.slot_packed
+    win_of = {sk: i for i, sk in enumerate(window_kinds(sig))}
 
-    def fn(data, rt):
+    def fn(data, rt, decoded):
         dev = data["alive"].device
         attrs = data["attrs"]
         lengths = rt["lengths"]
-
-        def packed_window(s: int, kind: int, key: str):
-            c = slot_packed[s][kind]
-            nb = max(slot_pb[s] // BLOCK, 1)
-            p0 = int(rt["pk_starts"][s, kind])
-            return window(data[f"{key}_{c}"], p0, nb), c, p0, nb
 
         def slot_postings(s: int):
             """Slot s's posting rows (pad -> N) and validity mask."""
             sz = slot_pb[s]
             if slot_packed[s][0]:
-                w, c, p0, nb = packed_window(s, 0, "pkrw_w")
-                b = window(data[f"pkrw_b_{c}"], p0, nb)
-                row = decode_rowids(w, b, c)
+                row = decoded[win_of[s, 0]]
             else:
                 row = window(data["res_rowid"], int(rt["starts"][s]), sz)
             msk = torch.arange(sz, device=dev) < int(lengths[s])
@@ -196,15 +233,13 @@ def build_match_core(sig: PlanSig, n_rows: int, n_fields: int,
             """tf/(tf+K1) per posting (packed: rebuilt from the tf planes
             in float32, as IndexBuilder rounds it)."""
             if slot_packed[s][1]:
-                w, c, _, _ = packed_window(s, 1, "pktf_w")
-                tf = decode_words(w, c).reshape(-1).to(torch.float32)
+                tf = decoded[win_of[s, 1]].to(torch.float32)
                 return tf / (tf + K1)
             return window(data["res_tfq"], int(rt["starts"][s]), slot_pb[s])
 
         def slot_fieldmask(s: int) -> torch.Tensor:
             if slot_packed[s][2]:
-                w, c, _, _ = packed_window(s, 2, "pkfm_w")
-                return decode_words(w, c).reshape(-1)
+                return decoded[win_of[s, 2]]
             return window(data["res_fieldmask"], int(rt["starts"][s]),
                           slot_pb[s])
 
@@ -397,13 +432,14 @@ def _lcs_weight(sig, rt, match, termmask, size, N, F, rk_slots, slot_hits,
 
 def build_kernel(sig: PlanSig, n_rows: int, n_fields: int,
                  slot_pb: tuple, slot_hb: tuple):
-    """The search program for one plan shape: (data, rt) -> {"rowid":
-    i32[k], "weight": i32[k], "found": i32[]}."""
+    """The search program for one plan shape: (data, rt, decoded) ->
+    {"rowid": i32[k], "weight": i32[k], "found": i32[]}; ``decoded`` as
+    for ``build_match_core``."""
     core = build_match_core(sig, n_rows, n_fields, slot_pb, slot_hb)
     k = sig.k
 
-    def fn(data, rt):
-        eligible, weight, rows = core(data, rt)
+    def fn(data, rt, decoded):
+        eligible, weight, rows = core(data, rt, decoded)
         found = eligible.sum(dtype=torch.int32)
         if sig.order[0] == "rel":
             # ties: weight desc, then row (docid) asc, as lax.top_k does

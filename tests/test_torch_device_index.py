@@ -1,11 +1,12 @@
 """Port parity: the device index upload.
 
-The port's ``upload(packed, "cpu")`` against the JAX package's
-``upload(packed).data_pytree()`` on one seeded corpus that has packed and
-residual terms and every attribute kind the upload handles (uint, float,
-bigint, string, MVA): the same keys, shapes, dtypes and values, including
-the over-padding, the uint32-as-int32 word views and the docid hi/lo
-split. ``from_jax_arrays`` on the JAX leaves must give identical tensors.
+The port's ``upload(from_jax_packed(packed), "cpu")`` against the JAX
+package's ``upload(packed).data_pytree()`` on one seeded corpus that has
+packed and residual terms and every attribute kind the upload handles
+(uint, float, bigint, string, MVA): the same keys, shapes, dtypes and
+values, including the over-padding, the uint32-as-int32 word views and
+the docid hi/lo split. ``from_jax_arrays`` on the JAX leaves must give
+identical tensors.
 
 Tolerance: exact. Every leaf is an integer, bool or float32 array copied,
 not computed.
@@ -19,6 +20,7 @@ from manticoresearch_tpu.ops.device_index import upload as jax_upload
 from manticoresearch_tpu.ops.packed_store import PACK_MIN
 from manticoresearch_tpu.schema import AttrDef, AttrType, Schema
 from manticoresearch_tpu_torch.ops.device_index import (from_jax_arrays,
+                                                        from_jax_packed,
                                                         upload, window)
 
 torch.set_num_threads(2)
@@ -76,7 +78,7 @@ def _assert_same(port_tree, jax_tree):
 
 
 def test_upload_matches_jax_data_pytree(packed):
-    dev = upload(packed, "cpu")
+    dev = upload(from_jax_packed(packed), "cpu")
     assert dev.n_rows == packed.n_docs and dev.n_fields == 2
     _assert_same(dev.data_pytree(), jax_upload(packed).data_pytree())
 

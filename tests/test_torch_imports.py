@@ -1,12 +1,14 @@
-"""The port never imports jax.
+"""The port imports neither jax nor the JAX package.
 
-The machine with the GPU has no JAX installed, so no module of
-``manticoresearch_tpu_torch`` and not ``chip_smoke.py`` may import jax,
-directly or through a module of the JAX package whose import chain reaches
-it. The chain is computed from the JAX package's own module-level imports
-(an AST scan), not from a hard-coded list. A subprocess in which
-``import jax`` raises then imports the port and ``chip_smoke`` and runs one
-query on the CPU.
+The machine with the GPU has no JAX installed, and the port stands on its
+own: no module of ``manticoresearch_tpu_torch`` and not ``chip_smoke.py``
+may import ``jax``, ``jaxlib``, ``manticoresearch_tpu`` (even a module of
+it that does not import jax) or ``bench``, at any level of the file (an
+AST scan of every import statement, function bodies included). The JAX
+package's own import chain to jax is still computed from its module-level
+imports, not from a hard-coded list. A subprocess in which importing any
+of those names raises then imports the port and ``chip_smoke``, builds an
+index with the port's builder and runs one query on the CPU.
 
 Tolerance: exact (import graphs and docids).
 """
@@ -18,6 +20,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 _JAX_ROOTS = ("jax", "jaxlib")
+_FORBIDDEN_ROOTS = _JAX_ROOTS + ("manticoresearch_tpu", "bench")
 
 
 def _module_name(path: Path) -> str:
@@ -100,15 +103,19 @@ def test_jax_chain_is_computed():
 def test_port_imports_nothing_that_reaches_jax():
     reach = _jax_reaching_modules()
     files = _files("manticoresearch_tpu_torch") + [REPO / "chip_smoke.py"]
-    assert len(files) >= 8
+    assert len(files) >= 20
     bad = {}
     for f in files:
         deps = _imports(f, module_level_only=False)
         hits = sorted(d for d in deps
-                      if d.split(".")[0] in _JAX_ROOTS or d in reach)
+                      if d.split(".")[0] in _FORBIDDEN_ROOTS or d in reach)
         if hits:
             bad[str(f.relative_to(REPO))] = hits
     assert not bad
+    # the scan sees the imports it must refuse, function bodies included
+    probe = REPO / "tests" / "test_torch_search.py"
+    assert {"bench", "manticoresearch_tpu.exec.searcher"} <= _imports(
+        probe, module_level_only=False)
 
 
 _NO_JAX_SCRIPT = r'''
@@ -116,8 +123,9 @@ import importlib, importlib.abc, pkgutil, sys
 
 class _NoJax(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError("jax is not installed here: " + name)
+        if name.split(".")[0] in ("jax", "jaxlib", "manticoresearch_tpu",
+                                  "bench"):
+            raise ImportError("not importable here: " + name)
         return None
 
 sys.meta_path.insert(0, _NoJax())
@@ -126,8 +134,8 @@ import manticoresearch_tpu_torch as port
 for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     importlib.import_module(m.name)
 
-from manticoresearch_tpu.index.builder import IndexBuilder
-from manticoresearch_tpu.schema import AttrDef, AttrType, Schema
+from manticoresearch_tpu_torch.index.builder import IndexBuilder
+from manticoresearch_tpu_torch.schema import AttrDef, AttrType, Schema
 from manticoresearch_tpu_torch.exec.searcher import SearchIndex, SearchQuery
 
 b = IndexBuilder(Schema(fields=["title"],
@@ -136,7 +144,8 @@ b.add_documents([dict(id=i + 1, g=i, title=t) for i, t in enumerate(
     ["red apple", "green apple pie", "blue sky", "apple apple"])])
 r = SearchIndex(b.build(), "cpu").search(SearchQuery(match="apple"))
 assert r.error is None, r.error
-assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+assert not [m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "manticoresearch_tpu", "bench")]
 print("DOCIDS", sorted(m.docid for m in r.matches))
 '''
 

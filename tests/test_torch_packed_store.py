@@ -5,7 +5,8 @@ version, which the wrappers take for CPU tensors) against the JAX
 package's XLA decode (``manticoresearch_tpu/ops/packed_store.py``), for
 every width class, on seeded random words with bit 31 set so the uint32
 bits held in int32 are exercised, and random bases so the int32 prefix
-sum wraps.
+sum wraps. ``decode_grouped`` (one call for many windows, the kernel's
+entry point) must equal the one-window plain decodes concatenated.
 
 Tolerance: exact. The results are integers and bit patterns.
 """
@@ -55,3 +56,41 @@ def test_decode_refuses_other_devices():
     words = torch.zeros((1, 16), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         ps.decode_words(words, 4)
+
+
+def test_decode_grouped_equals_one_window_decodes():
+    """Mixed classes, prefix on and off, nb = 1 and more, in one call."""
+    items = []
+    for i, (c, nb, prefix) in enumerate([
+            (16, 1, True), (4, 3, False), (32, 1, False), (8, 5, True),
+            (16, 2, False), (4, 1, True), (32, 4, True), (8, 1, False)]):
+        words, base = _inputs(c, nb, seed=1000 + i)
+        items.append((torch.from_numpy(words),
+                      torch.from_numpy(base) if prefix else None, c))
+    before = ps.LAUNCHES.plain
+    out, offsets = ps.decode_grouped(items)
+    assert ps.LAUNCHES.plain == before + 1      # one call, however many
+    want = [ps.decode_words_ref(w, c) if b is None
+            else ps.decode_rowids_ref(w, b, c).reshape(-1, ps.BLOCK)
+            for w, b, c in items]
+    assert out.dtype == torch.int32 and out.shape == (
+        sum(w.shape[0] for w, _, _ in items), ps.BLOCK)
+    assert offsets.tolist() == np.cumsum(
+        [0] + [w.shape[0] for w, _, _ in items]).tolist()
+    for i, ref in enumerate(want):
+        np.testing.assert_array_equal(
+            out[offsets[i]:offsets[i + 1]].numpy(), ref.numpy())
+    np.testing.assert_array_equal(out.numpy(), torch.cat(want).numpy())
+
+
+def test_decode_grouped_refuses_bad_windows():
+    words = torch.zeros((2, 16), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ps.decode_grouped([])
+    with pytest.raises(ValueError):
+        ps.decode_grouped([(words, None, 8)])            # 16 words: c=4
+    with pytest.raises(ValueError):
+        ps.decode_grouped([(words, torch.zeros(3, dtype=torch.int32), 4)])
+    with pytest.raises(ValueError):
+        ps.decode_grouped([(words, None, 4),
+                           (words.to("meta"), None, 4)])  # mixed devices

@@ -14,6 +14,7 @@ import torch
 
 from manticoresearch_tpu.ops.pfor import decode_packed as jax_decode_packed
 from manticoresearch_tpu.ops.pfor import pack_rowids
+from manticoresearch_tpu_torch.ops import packed_store as ps
 from manticoresearch_tpu_torch.ops.pfor import decode_packed
 
 torch.set_num_threads(2)
@@ -28,7 +29,9 @@ def test_decode_packed_matches_jax(n, maxgap):
     rows = np.cumsum(rng.randint(0, maxgap + 1, n)).astype(np.int64)
     packed = pack_rowids(rows)
     want = np.asarray(jax_decode_packed(packed))
+    before = ps.LAUNCHES.plain
     got = decode_packed(packed, "cpu")
+    assert ps.LAUNCHES.plain == before + 1   # every class in one decode
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got.numpy(), rows)

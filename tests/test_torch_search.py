@@ -1,14 +1,16 @@
 """Port parity: the main search path, JAX SearchIndex vs the port on the CPU.
 
 The same PackedIndex goes to ``manticoresearch_tpu.exec.searcher``
-(XLA on the CPU) and to ``manticoresearch_tpu_torch.exec.searcher`` with
-``device="cpu"`` (plain PyTorch, the bit-plane decode's plain version).
+(XLA on the CPU) and, carried across with ``from_jax_packed``, to
+``manticoresearch_tpu_torch.exec.searcher`` with ``device="cpu"`` (plain
+PyTorch, the bit-plane decode's plain version).
 Covered: the example.sql corpus in the slice's shapes (single / AND / OR /
 NOT / quorum / MAYBE, range and values filters, ORDER BY attr / id,
 offset / limit, delete, rankers proximity_bm25 / proximity / bm25 / none /
 fieldmask, so ws_bm25, ws and the LCS path all run), and a seeded random
 differential of config-1/2 queries over ``bench.build_corpus`` with packed
-and residual term slots, through ``search`` and ``search_batch``.
+and residual term slots, through ``search`` and ``search_batch``; each
+call decodes all its packed windows in one grouped decode.
 
 Tolerance: exact. Weights are integers computed by the reference formulas;
 docids, totals and word stats are integers and strings.
@@ -23,10 +25,13 @@ import bench
 from manticoresearch_tpu.exec.searcher import SearchIndex as JaxIndex
 from manticoresearch_tpu.exec.searcher import SearchQuery as JaxQuery
 from manticoresearch_tpu.index.builder import IndexBuilder
-from manticoresearch_tpu.query.planner import AttrFilterDef
+from manticoresearch_tpu.query.planner import AttrFilterDef as JaxFilter
 from manticoresearch_tpu.schema import AttrDef, AttrType, Schema
 from manticoresearch_tpu_torch.exec.searcher import SearchIndex, SearchQuery
+from manticoresearch_tpu_torch.ops import packed_store as ps
+from manticoresearch_tpu_torch.ops.device_index import from_jax_packed
 from manticoresearch_tpu_torch.ops.packed_store import PACK_MIN
+from manticoresearch_tpu_torch.query.planner import AttrFilterDef
 
 from .test_search import DOCS
 
@@ -38,7 +43,15 @@ SCHEMA = Schema(fields=["title", "content"],
 
 
 def _jax_query(q: SearchQuery) -> JaxQuery:
-    return JaxQuery(**{f.name: getattr(q, f.name) for f in fields(q)})
+    kw = {f.name: getattr(q, f.name) for f in fields(q)}
+    kw["filters"] = [JaxFilter(**{f.name: getattr(x, f.name)
+                                  for f in fields(x)}) for x in q.filters]
+    return JaxQuery(**kw)
+
+
+def _port(packed) -> SearchIndex:
+    """The port's index on the CPU over a copy of a JAX-built index."""
+    return SearchIndex(from_jax_packed(packed), "cpu")
 
 
 def _summary(r):
@@ -57,7 +70,7 @@ def _example_index():
 @pytest.fixture(scope="module")
 def example():
     packed = _example_index()
-    return JaxIndex(packed), SearchIndex(packed, "cpu")
+    return JaxIndex(packed), _port(packed)
 
 
 def _f(attr, kind, **kw):
@@ -118,7 +131,7 @@ def test_example_effective_rankers(example):
 
 def test_delete_matches_jax():
     packed = _example_index()
-    jax_idx, idx = JaxIndex(packed), SearchIndex(packed, "cpu")
+    jax_idx, idx = JaxIndex(packed), _port(packed)
     assert idx.delete_documents([2]) == jax_idx.delete_documents([2]) == 1
     assert idx.delete_documents([2]) == 0
     for kw in (dict(match="test"), dict(match="this is"), dict(match="")):
@@ -158,7 +171,7 @@ def test_float_attr_order_and_filter_match_jax(kw):
     q = SearchQuery(match="common", **kw)
     want = _summary(JaxIndex(packed).search(_jax_query(q)))
     assert len(want["matches"]) >= 4
-    assert _summary(SearchIndex(packed, "cpu").search(q)) == want
+    assert _summary(_port(packed).search(q)) == want
 
 
 @pytest.fixture(scope="module")
@@ -175,7 +188,7 @@ def wide_pair():
                           g=int(rng.randint(0, 2**32)))
                      for i in range(300)])
     packed = b.build()
-    return JaxIndex(packed), SearchIndex(packed, "cpu")
+    return JaxIndex(packed), _port(packed)
 
 
 _WIDE_OR = " | ".join(f"w{i}" for i in range(33))
@@ -214,7 +227,7 @@ N_RANDOM = 40
 @pytest.fixture(scope="module")
 def bench_pair():
     packed = bench.build_corpus(3000, 400, 30)
-    return packed, JaxIndex(packed), SearchIndex(packed, "cpu")
+    return packed, JaxIndex(packed), _port(packed)
 
 
 def _random_queries(packed, n, seed=5):
@@ -261,3 +274,22 @@ def test_random_differential_matches_jax(bench_pair):
     assert sum(w["total_found"] > 0 for w in want) >= N_RANDOM // 2
     assert [_summary(idx.search(q)) for q in queries] == want
     assert [_summary(r) for r in idx.search_batch(queries)] == want
+
+
+def test_one_grouped_decode_per_call(bench_pair):
+    """``search_batch`` decodes the packed windows of every query of the
+    batch, across plan-shape groups, in one grouped decode; ``search``
+    makes one too."""
+    packed, _, idx = bench_pair
+    queries = _random_queries(packed, 16)
+    plans = [idx.plan(q) for q in queries]
+    assert len({(cq.sig, cq.slot_pb, cq.slot_hb) for cq in plans}) >= 3
+    assert sum(p[0] for cq in plans for p in cq.sig.slot_packed) >= 4
+    ps.LAUNCHES.reset()
+    idx.search_batch(queries)
+    assert (ps.LAUNCHES.plain, ps.LAUNCHES.kernel) == (1, 0)
+    packed_q = next(q for q, cq in zip(queries, plans)
+                    if cq.sig.slot_packed[0][0])
+    ps.LAUNCHES.reset()
+    idx.search(packed_q)
+    assert (ps.LAUNCHES.plain, ps.LAUNCHES.kernel) == (1, 0)
