@@ -1,43 +1,59 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's main search path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's search paths on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-Phases; each raises on a failure, so the exit code is then not 0:
+Phases; each raises on a failure, so the exit code is then not 0. Every
+path is driven through ``SearchIndex.search_batch`` on ``device="cuda"``
+with the launch counters set to 0 just before and read just after, and
+its results are held equal to the same queries on ``device="cpu"``.
 
 1. Require CUDA. Print the card (``nvidia-smi`` name and power limit) and
    the torch and CUDA versions.
 2. Build the CUDA kernels from ``manticoresearch_tpu_torch/csrc`` (timed).
-3. Plan the main path's queries: the bench corpus at 200k documents
+3. The dense main path at 200k documents
    (``bench_corpus.build_corpus(200_000, 50_000, 100)``, the port's copy
-   of ``bench.build_corpus``), one batch of 64 config-1 queries and one of
-   64 config-2 queries, with terms picked as ``bench_corpus.WorkloadGen``
-   picks them.
+   of ``bench.build_corpus``): one batch of 64 config-1 queries and one of
+   64 config-2 queries, terms picked as ``bench_corpus.WorkloadGen`` picks
+   them.
 4. Check the grouped bit-plane decode kernel against its plain PyTorch
-   version on the card: each main-path batch's own work list; one work
-   list of every width class, with and without the prefix sum, windows of
-   1, 7 and the main path's number of blocks and one of 262144 blocks,
-   random words with bit 31 set and random bases; then each class through
-   the one-window wrappers; then 2148 small windows, more than the kernel
-   keeps in shared memory. Bit-exact. A misaligned window must raise.
-5. Run the main path: both batches through ``SearchIndex.search_batch``
-   on ``device="cuda"``, with the launch counters set to 0 just before and
-   read just after. Each ``search_batch`` must make exactly one kernel
-   launch, and the plain decode must not have run.
-6. Check the results: every docid, weight, total, total_found and word
-   stat equal to the same queries on ``device="cpu"``; the single-term
-   queries' top 10 equal to a host numpy model of the reference scoring
-   (recall@10 = 1.0, as ``bench.parity_recall_at_10``).
-7. Time each batch again with everything warm (and once under
-   ``torch.profiler``: device time, busy share, kernel launches), and the
-   kernel against its plain version: at the main path's shape (each
-   batch's work list, with the 50 MB L2 flushed before each launch), at
-   65536 blocks and at 262144 blocks of the main class (202 MB at c=16:
-   beyond L2).
-   The kernel's time is its device time from ``torch.profiler``; the
-   bound is the bytes it must move over 3.35 TB/s.
+   version on the card: each batch's own work list (here and at 1M); one
+   work list of every width class, with and without the prefix sum,
+   windows of 1, 7 and the main path's number of blocks and one of 262144
+   blocks, random words with bit 31 set and random bases; each class
+   through the one-window wrappers; 2148 small windows, more than the
+   kernel keeps in shared memory. Bit-exact. A misaligned window must
+   raise.
+5. Run both 200k batches: exactly one kernel launch per ``search_batch``,
+   no plain decode.
+6. Check the results: equal to the CPU port; the single-term queries' top
+   10 equal to a host numpy model of the reference scoring (recall@10 =
+   1.0, as ``bench.parity_recall_at_10``).
+7. Time each batch warm (and once under ``torch.profiler``: device time,
+   busy share, kernel launches), and the kernel against its plain version
+   at the main path's shape (L2 flushed before each launch), at 65536 and
+   at 262144 blocks of the main class (202 MB at c=16: beyond L2). The
+   kernel's time is its device time from ``torch.profiler``; the bound is
+   the bytes it must move over 3.35 TB/s.
+8. The 1M-document index (``build_corpus(1_000_000, 50_000, 100)``,
+   bench.py's ``scale.1000k_docs`` corpus; build and upload times, device
+   memory of the index):
+   a. 64 config-1 and 64 config-2 queries: the planner's share of sparse
+      (candidate-union) plans, one kernel launch per batch, equal to the
+      CPU port, recall@10 = 1.0; the config-1 batch again with
+      ``MT_SPARSE=never`` (dense plans) for the dense/sparse comparison;
+   b. 64 MATCH-less filter-first scans (``year`` ranges of 1-12 years or a
+      ``group_id`` value set; ordered by weight, id or group_id): every
+      plan has ``scan_index``, and no kernel launch;
+   c. 64 single-term ``ranker=bm25`` queries on terms too frequent for the
+      sparse union, under a one-value ``group_id`` filter: filter-first
+      with a MATCH, one kernel launch per batch.
+9. Every filter kind (MVA, id, bigint, JSON path) in one batch on a small
+   index built with the port's ``IndexBuilder``, under ``MT_SPARSE`` auto
+   and always: one launch where the batch reads packed windows, else none.
+Each batch of phases 5-9 prints its warm walls and one profiled run.
 
 The last three lines of standard output are one JSON object with the
 kernels' numbers, the card's name and power limit, then
@@ -46,6 +62,7 @@ kernels' numbers, the card's name and power limit, then
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -58,10 +75,11 @@ from manticoresearch_tpu_torch import bench_corpus
 from manticoresearch_tpu_torch.exec.searcher import SearchIndex, SearchQuery
 from manticoresearch_tpu_torch.ops import _build
 from manticoresearch_tpu_torch.ops import packed_store as ps
-from manticoresearch_tpu_torch.ops.search import packed_windows
+from manticoresearch_tpu_torch.ops.search import packed_windows, window_kinds
 from manticoresearch_tpu_torch.query.planner import AttrFilterDef
 
 N_DOCS, VOCAB, AVG_LEN = 200_000, 50_000, 100
+BIG_DOCS = 1_000_000       # bench.py's scale.1000k_docs
 BATCH = 64
 WARM_RUNS = 5
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory, published peak
@@ -99,6 +117,108 @@ def config2_queries(gen: bench_corpus.WorkloadGen,
             out.append(SearchQuery(match=f"{m1} {m2}", filters=filt,
                                    limit=10))
     return out
+
+
+def scan_queries(rng: np.random.RandomState, n: int) -> list[SearchQuery]:
+    """MATCH-less filtered scans: a ``year`` range of 1-12 years or a set of
+    1-5 ``group_id`` values within 40, ordered by weight, id or
+    group_id."""
+    sorts = [None, [("id", False)], [("group_id", True), ("id", True)],
+             [("id", True)], [("group_id", False), ("id", True)]]
+    out = []
+    for i in range(n):
+        if i % 2 == 0:
+            span = 1 + rng.randint(12)
+            y0 = 2000 + rng.randint(0, 25 - span + 1)
+            filt = AttrFilterDef("year", "range_i", lo=y0, hi=y0 + span - 1)
+        else:
+            base = rng.randint(0, 60)
+            vals = base + rng.choice(40, 1 + rng.randint(5), replace=False)
+            filt = AttrFilterDef("group_id", "values",
+                                 values=sorted(int(v) for v in vals))
+        out.append(SearchQuery(match="", filters=[filt], limit=10,
+                               sort=sorts[(i // 2) % len(sorts)]))
+    return out
+
+
+def ft_scan_queries(idx: SearchIndex, n: int) -> list[SearchQuery]:
+    """Single-term ``ranker=bm25`` queries under a one-value ``group_id``
+    filter, on the most frequent terms for which the planner picks the
+    filter-first plan (their posting buckets are too large for the sparse
+    union, and each df is at least 4x the filter's window)."""
+    packed = idx.packed
+    width = max(4, len(str(VOCAB - 1)))
+    out = []
+    for rank, t in enumerate(np.argsort(-packed.term_docs, kind="stable")):
+        for g in (rank % 100, (rank * 37 + 11) % 100):
+            q = SearchQuery(match=f"t{int(t):0{width}d}", ranker="bm25",
+                            limit=10, filters=[AttrFilterDef(
+                                "group_id", "values", values=[g])])
+            if idx.plan(q).sig.scan_index:
+                out.append(q)
+        if len(out) >= n or rank > 4 * n:
+            break
+    return out[:n]
+
+
+ATTR_DOCS = 4000
+BIG_IDS = [(1 << 32) + 5, (1 << 33) + 17, (1 << 40) + 3]
+
+
+def attr_index():
+    """A small index with every attribute kind the filters read: uint, MVA
+    (lists of 0-5 values), an MVA whose lists are all empty, bigint
+    (negatives, values past 2^31), JSON, and document ids past 2^32."""
+    from manticoresearch_tpu_torch.index.builder import IndexBuilder
+    from manticoresearch_tpu_torch.schema import AttrDef, AttrType, Schema
+    rng = np.random.RandomState(21)
+    words = [f"w{i}" for i in range(30)]
+    docs = []
+    for i in range(1, ATTR_DOCS + 1):
+        docs.append(dict(
+            id=(BIG_IDS[i - ATTR_DOCS + 2] if i > ATTR_DOCS - 3
+                else 100 + 3 * i),
+            title=words[i % 30],
+            body=" ".join(words[int(z) % 30] for z in rng.zipf(1.3, 10)),
+            year=2000 + i % 20,
+            tags=[int(x) for x in rng.randint(0, 40, rng.randint(0, 6))],
+            etags=[],
+            big=int(rng.choice([-1, 1]) * rng.randint(0, 2**40)),
+            meta=json.dumps({"a": int(rng.randint(0, 50)),
+                             "s": ["x", "y", "z"][i % 3]})))
+    docs[5]["big"] = 2**31 + 7
+    b = IndexBuilder(Schema(fields=["title", "body"],
+                            attrs=[AttrDef("year", AttrType.UINT),
+                                   AttrDef("tags", AttrType.MVA),
+                                   AttrDef("etags", AttrType.MVA),
+                                   AttrDef("big", AttrType.BIGINT),
+                                   AttrDef("meta", AttrType.JSON)]))
+    b.add_documents(docs)
+    return b.build()
+
+
+def filter_kind_queries() -> list[SearchQuery]:
+    """One query per filter kind, with a MATCH and without."""
+    f = AttrFilterDef
+    sets = [
+        [f("tags", "values", values=[3, 17])],                 # mva_any
+        [f("tags", "values", values=[3, 17], exclude=True)],
+        [f("tags", "mva_all", values=[1, 5])],
+        [f("tags", "mva_subset", values=[1, 2, 3, 4, 5])],
+        [f("tags", "range_i", lo=10, hi=20)],                  # mva_any_range
+        [f("tags", "mva_all_range", lo=0, hi=25)],
+        [f("etags", "values", values=[1], exclude=True)],      # empty MVA
+        [f("id", "values", values=[103, BIG_IDS[0], BIG_IDS[2]])],
+        [f("id", "range_i", lo=400, hi=2**33 + 17, exclude=True)],
+        [f("big", "values", values=[2**31 + 7, 5])],
+        [f("big", "range_i", lo=-(2**39), hi=2**31 + 7)],
+        [f("meta.a", "range_i", lo=10, hi=30)],                # host_mask
+        [f("meta.s", "values", values=["x"], exclude=True)],
+        [f("year", "values", values=[2003]), f("tags", "range_i", hi=30)],
+    ]
+    return [SearchQuery(match=m, filters=fs, limit=20,
+                        sort=[("big", False)] if m == "" else None)
+            for fs in sets for m in ("w2 | w17", "")]
 
 
 def host_top10(idx: SearchIndex, term: str) -> list[tuple[int, int]]:
@@ -156,13 +276,13 @@ def plain_grouped(items: list) -> torch.Tensor:
                       for w, b, c in items])
 
 
-def check_decode_kernel(nbs: list[int], big_c: int, big_nb: int,
-                        batch_items: dict) -> int:
-    """Grouped kernel vs plain version on the card; returns the max abs
-    error (must be 0) over every window of a mixed work list, and over
-    each main-path batch's own work list."""
+def check_batch_lists(batch_items: dict) -> int:
+    """Grouped kernel vs plain version on each batch's own work list;
+    returns the max abs error (must be 0)."""
     max_err = 0
     for name, items in batch_items.items():
+        if not items:
+            continue
         got = ps.decode_grouped(items)[0]
         want = plain_grouped(items)
         torch.cuda.synchronize()
@@ -174,6 +294,15 @@ def check_decode_kernel(nbs: list[int], big_c: int, big_nb: int,
                                  f"abs err {err})")
         print(f"  grouped bitplane_decode, {name} batch's work list "
               f"({len(items)} windows): bit-exact")
+    return max_err
+
+
+def check_decode_kernel(nbs: list[int], big_c: int, big_nb: int,
+                        batch_items: dict) -> int:
+    """Grouped kernel vs plain version on the card; returns the max abs
+    error (must be 0) over every window of a mixed work list, and over
+    each main-path batch's own work list."""
+    max_err = check_batch_lists(batch_items)
     gen = torch.Generator().manual_seed(1234)
     items = [_random_window(c, nb, prefix, gen)
              for c in ps.CLASSES for nb in nbs for prefix in (False, True)]
@@ -304,7 +433,9 @@ def time_decode(name: str, items: list, iters: int, flush: bool) -> dict:
 def profile_batch(idx: SearchIndex, queries: list[SearchQuery]) -> dict:
     """One warm batch under torch.profiler: its wall time, the device time
     of every kernel and copy in it (one stream, so they do not overlap),
-    the device busy share, the kernel launches and K1's device time."""
+    the device busy share, the kernel launches, the host's waits on the
+    device and its copies (CUDA runtime calls by name), K1's device time
+    and events, and the device ops that took the most time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -316,12 +447,144 @@ def profile_batch(idx: SearchIndex, queries: list[SearchQuery]) -> dict:
     events = prof.events()
     on_device = [e for e in events if e.device_type == DeviceType.CUDA]
     dev_ms = sum(e.time_range.elapsed_us() for e in on_device) / 1e3
-    k1_ms = sum(e.time_range.elapsed_us() for e in on_device
-                if KERNEL_EVENT in e.name) / 1e3
+    k1 = [e.time_range.elapsed_us() for e in on_device
+          if KERNEL_EVENT in e.name]
     launches = sum(1 for e in events
                    if e.name.startswith("cudaLaunchKernel"))
+    waits = Counter(e.name for e in events if "Synchronize" in e.name
+                    or e.name.startswith("cudaMemcpy"))
+    by_name: dict = {}
+    for e in on_device:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
     return dict(wall_ms=wall_ms, device_ms=dev_ms,
-                busy=dev_ms / wall_ms, launches=launches, k1_ms=k1_ms)
+                busy=dev_ms / wall_ms, launches=launches,
+                k1_ms=sum(k1) / 1e3, k1_events=len(k1), waits=dict(waits),
+                top=[(name[:70], n, round(us / 1e3, 3))
+                     for name, (n, us) in top])
+
+
+def reads_packed(idx: SearchIndex, queries: list[SearchQuery]) -> bool:
+    """Whether any of the queries' programs reads a packed window."""
+    return any(window_kinds(idx.plan(q).sig) for q in queries)
+
+
+def run_counted(name: str, idx: SearchIndex, queries: list[SearchQuery],
+                launches_by_path: dict) -> tuple[list, float]:
+    """Drive one ``search_batch`` with the launch counters set to 0 just
+    before and read just after: exactly one kernel launch where the batch
+    reads packed windows, else none, and never a plain decode."""
+    want = 1 if reads_packed(idx, queries) else 0
+    torch.cuda.synchronize()
+    ps.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    results = idx.search_batch(queries)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = ps.LAUNCHES.kernel, ps.LAUNCHES.plain
+    launches_by_path[name] = launches
+    print(f"{name}: bitplane_decode launches {launches} (expected {want}), "
+          f"{ps.LAUNCHES.blocks} blocks, plain decodes {plain}; first run "
+          f"{wall * 1e3:.1f} ms")
+    if launches != want or plain != 0:
+        raise AssertionError(f"{name}: {launches} kernel launches and "
+                             f"{plain} plain decodes, expected {want} and 0")
+    return results, wall
+
+
+def check_equal(name: str, queries: list, got: list, want: list) -> None:
+    for q, g, w in zip(queries, got, want):
+        if g.error is not None or w.error is not None:
+            raise AssertionError(f"{name} {q.match!r}: error "
+                                 f"{g.error or w.error}")
+        if _summary(g) != _summary(w):
+            raise AssertionError(f"{name} {q.match!r} {q.filters}: cuda "
+                                 f"result {_summary(g)} != cpu {_summary(w)}")
+    found = [r.total_found for r in got]
+    print(f"{name}: {len(queries)} queries equal on cuda and cpu; "
+          f"total_found min/median/max {min(found)}/"
+          f"{int(np.median(found))}/{max(found)}")
+
+
+def recall_at_10(name: str, idx: SearchIndex, queries: list,
+                 results: list) -> None:
+    """recall@10 of the single-term queries against the host model."""
+    n_single, recall = 0, 0.0
+    for q, g in zip(queries, results):
+        if " " not in q.match and not q.filters:
+            model = host_top10(idx, q.match)
+            got = [(m.docid, m.weight) for m in g.matches]
+            recall += (sum(1 for x in got if x in model)
+                       / max(len(model), len(got), 1))
+            n_single += 1
+    recall /= max(n_single, 1)
+    print(f"{name}: recall@10 vs the host model over {n_single} single-term "
+          f"queries: {recall}")
+    if recall != 1.0:
+        raise AssertionError(f"{name}: recall@10 {recall} != 1.0")
+
+
+def time_batch(name: str, idx: SearchIndex, queries: list,
+               runs: int) -> dict:
+    """Warm walls of one batch, then one warm run under the profiler."""
+    warm = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        idx.search_batch(queries)
+        torch.cuda.synchronize()
+        warm.append(round((time.perf_counter() - t0) * 1e3, 2))
+    prof = profile_batch(idx, queries)
+    print(f"{name}: batch of {len(queries)} on cuda, warm runs (ms) {warm}")
+    print(f"{name}: one warm batch under the profiler: wall "
+          f"{prof['wall_ms']:.2f} ms, device time {prof['device_ms']:.3f} ms "
+          f"(busy share {prof['busy']:.3f}), {prof['launches']} kernel "
+          f"launches, K1 {prof['k1_ms'] * 1e3:.2f} us in "
+          f"{prof['k1_events']} events")
+    print(f"{name}: top device ops (name, count, ms): {prof['top']}")
+    print(f"{name}: host waits and copies: {prof['waits']}")
+    return dict(warm_ms=warm, **prof)
+
+
+def compare_sparse_dense(name: str, idx: SearchIndex, queries: list,
+                         runs: int) -> None:
+    """Warm walls of one batch on the planner's sparse plans and on dense
+    plans (``MT_SPARSE=never``), in turns sparse, dense, dense, sparse;
+    each turn starts with one unmeasured run that plans the batch."""
+    walls: dict = {"auto": [], "never": []}
+    for mode in ("auto", "never", "never", "auto"):
+        set_sparse_mode(mode, idx)
+        idx.search_batch(queries)
+        torch.cuda.synchronize()
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            idx.search_batch(queries)
+            torch.cuda.synchronize()
+            walls[mode].append(round((time.perf_counter() - t0) * 1e3, 2))
+    set_sparse_mode("auto", idx)
+    print(f"{name}: warm walls in turns sparse, dense, dense, sparse (ms): "
+          f"sparse {walls['auto']}, dense {walls['never']}; medians "
+          f"{np.median(walls['auto']):.2f} and "
+          f"{np.median(walls['never']):.2f}")
+
+
+def set_sparse_mode(mode: str, *indexes: SearchIndex) -> None:
+    """The planner's MT_SPARSE override; cached plans are dropped."""
+    os.environ["MT_SPARSE"] = mode
+    for idx in indexes:
+        idx._plan_cache.clear()
+
+
+def index_bytes(idx: SearchIndex) -> int:
+    total = 0
+    for v in idx.device.data_pytree().values():
+        for t in (v.values() if isinstance(v, dict) else [v]):
+            total += t.numel() * t.element_size()
+    return total
+
+
+def since(t_start: float) -> str:
+    return f"[{time.perf_counter() - t_start:.0f} s]"
 
 
 # --------------------------------------------------------------------------
@@ -330,6 +593,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false: this smoke "
               "run needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
 
     # 1. the card
     smi = subprocess.run(
@@ -366,6 +630,8 @@ def main() -> int:
     rankers = Counter(cq.sig.ranker for cq in all_plans)
     if set(rankers) != {"ws_bm25", "proximity_bm25"}:
         raise AssertionError(f"unexpected effective rankers {rankers}")
+    if any(cq.sig.sparse for cq in all_plans):
+        raise AssertionError("a 200k-document plan is not dense")
     slot_blocks = Counter(
         (cq.sig.slot_packed[s][0], cq.slot_pb[s] // ps.BLOCK)
         for cq in all_plans for s in range(cq.sig.n_slots)
@@ -388,75 +654,29 @@ def main() -> int:
     max_err = check_decode_kernel(sorted({1, 7, main_nb}), main_c, big_nb,
                                   batch_items)
 
-    # 5. the main path on the card, counted
-    ps.LAUNCHES.reset()
+    # 5. the dense main path on the card, counted
+    launches_by_path: dict = {}
     gpu_results = {}
-    wall = {}
-    per_batch = {}
     peak = {}
     for name, qs in batches.items():
-        before = ps.LAUNCHES.kernel
         torch.cuda.reset_peak_memory_stats()
         base_mem = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        gpu_results[name] = gpu.search_batch(qs)
-        torch.cuda.synchronize()
-        wall[name] = time.perf_counter() - t0
-        per_batch[name] = ps.LAUNCHES.kernel - before
+        gpu_results[name], _ = run_counted(f"200k {name}", gpu, qs,
+                                           launches_by_path)
         peak[name] = torch.cuda.max_memory_allocated() - base_mem
-    launches, plain = ps.LAUNCHES.kernel, ps.LAUNCHES.plain
-    blocks = ps.LAUNCHES.blocks
-    print(f"main path on cuda: bitplane_decode launches {launches} "
-          f"({per_batch} per search_batch), {blocks} blocks decoded, "
-          f"plain decodes {plain}; peak device memory above the index "
-          f"per batch (MiB): "
+    print(f"peak device memory above the index per batch (MiB): "
           f"{ {k: round(v / 2**20, 2) for k, v in peak.items()} }")
-    if plain != 0 or any(n != 1 for n in per_batch.values()):
-        raise AssertionError("the main path did not make exactly one kernel "
-                             "launch per search_batch")
 
     # 6. results: equal to the CPU port, recall@10 vs the host model
-    n_single = 0
-    recall = 0.0
     for name, qs in batches.items():
-        want = cpu.search_batch(qs)
-        for q, g, w in zip(qs, gpu_results[name], want):
-            if g.error is not None or w.error is not None:
-                raise AssertionError(f"{q.match!r}: error {g.error or w.error}")
-            if _summary(g) != _summary(w):
-                raise AssertionError(f"{name} {q.match!r}: cuda result "
-                                     f"{_summary(g)} != cpu {_summary(w)}")
-            if " " not in q.match and not q.filters:
-                model = host_top10(gpu, q.match)
-                got = [(m.docid, m.weight) for m in g.matches]
-                hit = sum(1 for x in got if x in model)
-                recall += hit / max(len(model), len(got), 1)
-                n_single += 1
-        found = [r.total_found for r in gpu_results[name]]
-        print(f"{name}: {len(qs)} queries equal on cuda and cpu; "
-              f"total_found min/median/max {min(found)}/"
-              f"{int(np.median(found))}/{max(found)}")
-    recall /= max(n_single, 1)
-    print(f"recall@10 vs the host model over {n_single} single-term "
-          f"queries: {recall}")
-    if recall != 1.0:
-        raise AssertionError(f"recall@10 {recall} != 1.0")
+        check_equal(f"200k {name}", qs, gpu_results[name],
+                    cpu.search_batch(qs))
+    recall_at_10("200k", gpu, [q for qs in batches.values() for q in qs],
+                 [r for rs in gpu_results.values() for r in rs])
 
     # 7. timing
     for name, qs in batches.items():
-        warm = []
-        for _ in range(WARM_RUNS):
-            t0 = time.perf_counter()
-            gpu.search_batch(qs)
-            torch.cuda.synchronize()
-            warm.append(round((time.perf_counter() - t0) * 1e3, 2))
-        print(f"{name}: batch of {len(qs)} on cuda: first run "
-              f"{wall[name] * 1e3:.1f} ms, warm runs (ms) {warm}")
-        prof = profile_batch(gpu, qs)
-        print(f"{name}: one warm batch under the profiler: wall "
-              f"{prof['wall_ms']:.2f} ms, device time {prof['device_ms']:.3f}"
-              f" ms (busy share {prof['busy']:.3f}), {prof['launches']} "
-              f"kernel launches, K1 {prof['k1_ms'] * 1e3:.2f} us")
+        time_batch(f"200k {name}", gpu, qs, WARM_RUNS)
     main = time_decode("main path (config-2 batch)", batch_items["config2"],
                        iters=100, flush=True)
     time_decode("main path (config-1 batch)", batch_items["config1"],
@@ -468,11 +688,124 @@ def main() -> int:
     time_decode(f"c={main_c} {big_nb} blocks rowids (beyond L2)",
                 [_random_window(main_c, big_nb, True, gen)], iters=20,
                 flush=False)
+    del gpu, cpu, packed, data, batch_items, plans, all_plans
+    torch.cuda.empty_cache()
+    print(f"{since(t_start)} 200k phases done")
 
+    # 8. the large index: sparse union and filter-first plans
+    n_big = BIG_DOCS
+    tag = f"{n_big // 1000}k"
+    t0 = time.perf_counter()
+    big = bench_corpus.build_corpus(n_big, VOCAB, AVG_LEN)
+    print(f"{tag} corpus: {big.n_docs} docs, {big.n_postings} postings, "
+          f"{len(big.hit_packed)} hits, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    big.packed_store()
+    print(f"{tag} packed store built in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gpu = SearchIndex(big, device="cuda")
+    torch.cuda.synchronize()
+    print(f"{tag} upload to cuda: {time.perf_counter() - t0:.1f} s; device "
+          f"memory of the index {index_bytes(gpu) / 2**30:.3f} GiB "
+          f"(allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB)")
+    t0 = time.perf_counter()
+    cpu = SearchIndex(big, device="cpu")
+    print(f"{tag} upload to cpu: {time.perf_counter() - t0:.1f} s")
+    set_sparse_mode("auto", gpu, cpu)
+
+    # 8a. config 1 and 2
+    gen = bench_corpus.WorkloadGen(np.random.RandomState(8), VOCAB, big)
+    big_batches = {"config1": config1_queries(gen, BATCH),
+                   "config2": config2_queries(gen, BATCH)}
+    data = gpu.device.data_pytree()
+    big_items = {}
+    for name, qs in big_batches.items():
+        cqs = [gpu.plan(q) for q in qs]
+        share = sum(cq.sig.sparse for cq in cqs) / len(cqs)
+        sizes = [int(sum(cq.slot_pb)) for cq in cqs if cq.sig.sparse]
+        print(f"{tag} {name}: sparse plans {share:.3f} of {len(cqs)}; "
+              f"candidate buckets min/median/max {min(sizes, default=0)}/"
+              f"{int(np.median(sizes)) if sizes else 0}/"
+              f"{max(sizes, default=0)}")
+        if share < 0.9:
+            raise AssertionError(f"{tag} {name}: only {share:.3f} of the "
+                                 "plans are sparse")
+        big_items[f"{tag} {name}"] = [w for cq in cqs for w in packed_windows(
+            cq.sig, cq.slot_pb, data, cq.runtime)]
+    max_err = max(max_err, check_batch_lists(big_items))
+    for name, qs in big_batches.items():
+        res, _ = run_counted(f"{tag} {name}", gpu, qs, launches_by_path)
+        check_equal(f"{tag} {name}", qs, res, cpu.search_batch(qs))
+        recall_at_10(f"{tag} {name}", gpu, qs, res)
+        time_batch(f"{tag} {name}", gpu, qs, 3)
+    set_sparse_mode("never", gpu)
+    if any(gpu.plan(q).sig.sparse for q in big_batches["config1"]):
+        raise AssertionError("MT_SPARSE=never gave a sparse plan")
+    run_counted(f"{tag} config1 dense (MT_SPARSE=never)", gpu,
+                big_batches["config1"], launches_by_path)
+    time_batch(f"{tag} config1 dense (MT_SPARSE=never)", gpu,
+               big_batches["config1"], 3)
+    set_sparse_mode("auto", gpu)
+    for name, qs in big_batches.items():
+        compare_sparse_dense(f"{tag} {name}", gpu, qs, 3)
+    print(f"{since(t_start)} {tag} config 1/2 done")
+
+    # 8b, 8c. filter-first: MATCH-less scans, single terms under a filter
+    scans = scan_queries(np.random.RandomState(9), BATCH)
+    ft = ft_scan_queries(gpu, BATCH)
+    if len(ft) < BATCH:
+        raise AssertionError(f"only {len(ft)} filter-first term queries")
+    for name, qs in ((f"{tag} filter-first scans", scans),
+                     (f"{tag} filter-first bm25", ft)):
+        cqs = [gpu.plan(q) for q in qs]
+        if not all(cq.sig.scan_index and cq.sig.sparse for cq in cqs):
+            raise AssertionError(f"{name}: a plan is not filter-first")
+        print(f"{name}: candidate buckets "
+              f"{dict(Counter(cq.sig.scan_bucket for cq in cqs))}")
+        items = {name: [w for cq in cqs for w in packed_windows(
+            cq.sig, cq.slot_pb, data, cq.runtime)]}
+        max_err = max(max_err, check_batch_lists(items))
+        res, _ = run_counted(name, gpu, qs, launches_by_path)
+        check_equal(name, qs, res, cpu.search_batch(qs))
+        time_batch(name, gpu, qs, 3)
+    time_decode(f"{tag} config-1 batch", big_items[f"{tag} config1"],
+                iters=50, flush=True)
+    del gpu, cpu, big, data, big_items
+    torch.cuda.empty_cache()
+    print(f"{since(t_start)} {tag} filter-first done")
+
+    # 9. every filter kind on a small index, MT_SPARSE auto and always
+    t0 = time.perf_counter()
+    small = attr_index()
+    gpu = SearchIndex(small, device="cuda")
+    cpu = SearchIndex(small, device="cpu")
+    print(f"attribute index: {small.n_docs} docs built and uploaded in "
+          f"{time.perf_counter() - t0:.1f} s")
+    qs = filter_kind_queries()
+    for mode in ("auto", "always"):
+        set_sparse_mode(mode, gpu, cpu)
+        cqs = [gpu.plan(q) for q in qs]
+        kinds = Counter(spec.kind for cq in cqs for spec in cq.sig.filters)
+        spaces = Counter("filter-first" if cq.sig.scan_index else
+                         "sparse" if cq.sig.sparse else "dense" for cq in cqs)
+        print(f"filter kinds, MT_SPARSE={mode}: {dict(kinds)}; plans "
+              f"{dict(spaces)}")
+        if mode == "always" and not all(
+                cq.sig.sparse for q, cq in zip(qs, cqs) if q.match):
+            raise AssertionError("MT_SPARSE=always left a MATCH dense")
+        name = f"filter kinds ({mode})"
+        res, _ = run_counted(name, gpu, qs, launches_by_path)
+        check_equal(name, qs, res, cpu.search_batch(qs))
+        time_batch(name, gpu, qs, 3)
+    set_sparse_mode("auto", gpu, cpu)
+    print(f"{since(t_start)} filter kinds done")
+
+    launches = sum(launches_by_path.values())
     print(json.dumps({"kernels": [{
         "name": "bitplane_decode", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
-        "launches_per_batch": launches / len(batches),
+        "launches_by_path": launches_by_path,
         "max_abs_err": max_err, "ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": "bytes", "library_ms": None}]}))

@@ -8,12 +8,14 @@ result. ``SearchQuery``, ``Match``, ``WordStat`` and ``SearchResult`` have
 the fields of the JAX module's.
 
 Not in this slice, each raising ``NotImplementedError``: GROUP BY, JSON
-ORDER BY, late (expression) filters, ``ranker=expr`` / ``sph04`` and
-``PACKEDFACTORS()``, plus every plan shape ``ops.search.check_in_slice``
-refuses.
+ORDER BY, late filters (expressions, and MVA values past 32 bits),
+``ranker=expr`` / ``sph04`` and ``PACKEDFACTORS()``, plus every plan shape
+``ops.search.check_in_slice`` refuses. A filter on a JSON path goes to the
+planner, which evaluates it on the host into a row bitmask.
 """
 from __future__ import annotations
 
+import re
 import time
 from dataclasses import dataclass, field as dc_field
 from typing import Any
@@ -24,7 +26,8 @@ import torch
 from ..index.builder import PackedIndex
 from ..ops.device_index import upload
 from ..ops.packed_store import decode_grouped
-from ..ops.search import INT32_MIN, build_kernel, pack_output, packed_windows
+from ..ops.search import (INT32_MAX, INT32_MIN, build_kernel, pack_output,
+                          packed_windows)
 from ..query.explain import render_plan
 from ..query.ftparser import FtQueryParser
 from ..query.planner import AttrFilterDef, CompiledQuery, plan_query
@@ -112,9 +115,18 @@ def _check_query_in_slice(q: SearchQuery, schema) -> None:
     if q.sort and "." in q.sort[0][0]:
         no("ORDER BY a JSON path")
     for f in q.filters:
-        if schema.attr(f.attr) is None and f.attr not in ("id", "@id"):
-            no(f"filter on {f.attr!r} (expression, JSON path or unknown "
-               "attribute)")
+        ad = schema.attr(f.attr)
+        if ad is not None and ad.type.value in ("multi", "multi64") and any(
+                v is not None and abs(int(v)) > INT32_MAX
+                for v in [*(f.values or []), f.lo, f.hi]):
+            no(f"filter on {f.attr!r} with MVA values past 32 bits (a late "
+               "filter)")
+        if ad is not None or f.attr in ("id", "@id"):
+            continue
+        base = schema.attr(f.attr.split(".", 1)[0])
+        if not (re.fullmatch(r"\w+(\.\w+)+", f.attr) and base is not None
+                and base.type.value == "json"):
+            no(f"filter on {f.attr!r} (expression or unknown attribute)")
 
 
 def _resolve_order(q: SearchQuery, schema) -> tuple:
@@ -203,7 +215,7 @@ class SearchIndex:
     def _program(self, cq: CompiledQuery):
         return build_kernel(cq.sig, self.packed.n_docs,
                             max(self.schema.n_fields, 1),
-                            cq.slot_pb, cq.slot_hb)
+                            cq.slot_pb, cq.slot_hb, cq.n_hit_iters)
 
     def _decode_windows(self, data: dict,
                         plans: list[CompiledQuery]) -> list[list]:

@@ -150,6 +150,14 @@ def test_out_of_slice_shapes_raise(example):
         idx.search_batch([SearchQuery(match="@title test")])
     with pytest.raises(NotImplementedError, match="GROUP BY"):
         idx.search(SearchQuery(match="test", group_by="group_id"))
+    with pytest.raises(NotImplementedError, match="expression"):
+        idx.search(SearchQuery(match="test", filters=_f(
+            "group_id*2", "range_i", lo=0, hi=4)))
+    with pytest.raises(NotImplementedError, match="expression"):
+        idx.search_batch([SearchQuery(match="", filters=_f(
+            "group_id.x", "values", values=[1]))])   # not a JSON attribute
+    with pytest.raises(NotImplementedError, match="JSON path"):
+        idx.search(SearchQuery(match="test", sort=[("meta.a", True)]))
 
 
 @pytest.mark.parametrize("kw", [
