@@ -37,23 +37,44 @@ its results are held equal to the same queries on ``device="cpu"``.
    at 262144 blocks of the main class (202 MB at c=16: beyond L2). The
    kernel's time is its device time from ``torch.profiler``; the bound is
    the bytes it must move over 3.35 TB/s.
-8. The 1M-document index (``build_corpus(1_000_000, 50_000, 100)``,
+8. Config 3 at 200k (dense plans): 64 queries of ``WorkloadGen.config3``
+   (half ``"w1 w2"`` phrases, half ``"w1 w2"~5``, field weight
+   content=3), and 64 of term pairs that stand adjacent (32 phrases) or
+   within 5 positions (32 proximity queries) in a random document, read
+   from the index's hit arrays (terms of at most 65536 documents), each of
+   which must find a document: the
+   kernel on each batch's work list, one launch per batch, equal to the
+   CPU port, the count of queries that find something.
+9. The 1M-document index (``build_corpus(1_000_000, 50_000, 100)``,
    bench.py's ``scale.1000k_docs`` corpus; build and upload times, device
    memory of the index):
    a. 64 config-1 and 64 config-2 queries: the planner's share of sparse
       (candidate-union) plans, one kernel launch per batch, equal to the
       CPU port, recall@10 = 1.0; the config-1 batch again with
       ``MT_SPARSE=never`` (dense plans) for the dense/sparse comparison;
-   b. 64 MATCH-less filter-first scans (``year`` ranges of 1-12 years or a
+   b. the two config-3 batches of phase 8 on this corpus: at least 0.9 of
+      the plans sparse, one launch per batch, equal to the CPU port;
+   c. 64 MATCH-less filter-first scans (``year`` ranges of 1-12 years or a
       ``group_id`` value set; ordered by weight, id or group_id): every
       plan has ``scan_index``, and no kernel launch;
-   c. 64 single-term ``ranker=bm25`` queries on terms too frequent for the
+   d. 64 single-term ``ranker=bm25`` queries on terms too frequent for the
       sparse union, under a one-value ``group_id`` filter: filter-first
       with a MATCH, one kernel launch per batch.
-9. Every filter kind (MVA, id, bigint, JSON path) in one batch on a small
-   index built with the port's ``IndexBuilder``, under ``MT_SPARSE`` auto
-   and always: one launch where the batch reads packed windows, else none.
-Each batch of phases 5-9 prints its warm walls and one profiled run.
+10. Every filter kind (MVA, id, bigint, JSON path) in one batch on a small
+    index built with the port's ``IndexBuilder``, under ``MT_SPARSE`` auto
+    and always: one launch where the batch reads packed windows, else
+    none.
+11. Every positional operator, limit and ranker of the port (phrase,
+    proximity, NEAR / NOTNEAR and NEAR over a phrase and chains,
+    SENTENCE, PARAGRAPH, ``@field``, ``@field[N]``, ``^word``, ``word$``,
+    ZONE, ZONESPAN, wildcard merge groups, repeated keywords, the rankers
+    wordcount and matchany, phrases under OR / NOT / MAYBE and a filter)
+    in one batch on a 3,000-document index with ``html_strip``, zones,
+    ``index_sp`` and ``min_prefix_len=1``, and 2-word phrases on its
+    ``bigram_index`` twin, under ``MT_SPARSE`` auto and always: the same
+    launch rule as phase 10, equal to the CPU port.
+Each batch of phases 5-11 prints its warm walls and one profiled run
+(device time, busy share, kernel launches, host waits and copies).
 
 The last three lines of standard output are one JSON object with the
 kernels' numbers, the card's name and power limit, then
@@ -219,6 +240,91 @@ def filter_kind_queries() -> list[SearchQuery]:
     return [SearchQuery(match=m, filters=fs, limit=20,
                         sort=[("big", False)] if m == "" else None)
             for fs in sets for m in ("w2 | w17", "")]
+
+
+CONFIG3_WEIGHTS = {"content": 3}
+# corpus-drawn pairs keep to terms of at most 65536 documents: two such
+# slots stay within the sparse gate at 1M (B <= n_docs / 4), and neither
+# corpus's batch meets the Zipf head's multi-million-hit slices
+PAIR_MAX_DF = 1 << 16
+
+
+def pair_queries(packed, rng: np.random.RandomState, n: int,
+                 max_df: int | None = None) -> list[SearchQuery]:
+    """n/2 phrases and n/2 ``~5`` proximity queries of two terms that stand
+    adjacent (phrase) or within 5 positions (proximity) in a random
+    document, read from the index's hit arrays: each finds a document."""
+    def mk(pairs, tail):
+        return [SearchQuery(match=f'"{a} {b}"{tail}', limit=10,
+                            field_weights=CONFIG3_WEIGHTS) for a, b in pairs]
+    return (mk(bench_corpus.positional_pairs(packed, rng, n // 2, 1, max_df),
+               "")
+            + mk(bench_corpus.positional_pairs(packed, rng, n - n // 2, 5,
+                                               max_df), "~5"))
+
+
+POS_DOCS = 3000
+
+
+def positional_index(bigram: str = ""):
+    """A small index for every positional operator and limit: two fields,
+    ``html_strip`` with ``h1`` / ``em`` zones and paragraph tags,
+    ``index_sp``, ``min_prefix_len=1`` (wildcards), a ``year`` attribute,
+    optionally ``bigram_index``; 40 Zipf-drawn words, so that the frequent
+    ones have packed slots (df >= 128)."""
+    from manticoresearch_tpu_torch.index.builder import IndexBuilder
+    from manticoresearch_tpu_torch.schema import AttrDef, AttrType, Schema
+    from manticoresearch_tpu_torch.text.dictionary import DictSettings
+    from manticoresearch_tpu_torch.text.tokenizer import TokenizerSettings
+    rng = np.random.RandomState(31)
+    words = [f"w{i}" for i in range(40)]
+
+    def text(k):
+        return " ".join(words[int(z) % 40] for z in rng.zipf(1.3, k))
+    docs = [dict(id=i, title=text(4), year=2000 + i % 20,
+                 body=(f"<h1>{text(3)}</h1> {text(6)}. {text(5)} "
+                       f"<em>{text(2)}</em>.<p>{text(6)}. {text(4)}</p>"))
+            for i in range(1, POS_DOCS + 1)]
+    b = IndexBuilder(
+        Schema(fields=["title", "body"],
+               attrs=[AttrDef("year", AttrType.UINT)]),
+        TokenizerSettings(html_strip=True, index_zones=("h1", "em"),
+                          index_sp=True, bigram_index=bigram),
+        DictSettings(min_prefix_len=1))
+    b.add_documents(docs)
+    return b.build()
+
+
+def positional_kind_queries() -> list[SearchQuery]:
+    """Every operator, limit and ranker of the positional slice."""
+    year = [AttrFilterDef("year", "range_i", lo=2003, hi=2010)]
+    kinds = [
+        dict(match='"w1 w2"'), dict(match='"w1 w2 w1"'),
+        dict(match='"w1 w3"~4'), dict(match="w1 NEAR/3 w2"),
+        dict(match="w1 NOTNEAR/2 w5"), dict(match='"w1 w2" NEAR/4 w3'),
+        dict(match="w1 NEAR/2 w2 NEAR/2 w3"), dict(match="w1 SENTENCE w4"),
+        dict(match="w2 PARAGRAPH w6"), dict(match="@title w1"),
+        dict(match="@title[2] w1"), dict(match="^w1"), dict(match="w2$"),
+        dict(match="@body ^w3 w1"), dict(match="ZONE:h1 w1"),
+        dict(match="ZONE:(h1,em) w2"), dict(match="ZONESPAN:h1 w1 w2"),
+        dict(match="ZONESPAN:h1 w1 | w2"), dict(match="w1*"),
+        dict(match="w1* w2"), dict(match="@title w2*"),
+        dict(match="w1 w2 w1"), dict(match="w1 w2 w1", ranker="proximity"),
+        dict(match="w1 w2", ranker="wordcount"),
+        dict(match='"w1 w2" w3', ranker="wordcount"),
+        dict(match="w1 | w3", ranker="matchany"),
+        dict(match="w1 w2 w1", ranker="matchany"),
+        dict(match='"w1 w2" | w7'), dict(match='"w1 w2" -w3'),
+        dict(match='w4 MAYBE "w1 w2"'), dict(match='"w1 w2"', filters=year),
+        dict(match='"w1 w2"', ranker="bm25"),
+    ]
+    return [SearchQuery(limit=20, **kw) for kw in kinds]
+
+
+def bigram_queries() -> list[SearchQuery]:
+    return [SearchQuery(match=m, limit=20) for m in
+            ('"w1 w2"', '"w2 w3" | w4', '"w3 w1"~2', '"w1 w2" w5',
+             '"w5 w1" -w2')]
 
 
 def host_top10(idx: SearchIndex, term: str) -> list[tuple[int, int]]:
@@ -568,6 +674,42 @@ def compare_sparse_dense(name: str, idx: SearchIndex, queries: list,
           f"{np.median(walls['never']):.2f}")
 
 
+def config3_phase(tag: str, gpu: SearchIndex, cpu: SearchIndex,
+                  batches: dict, launches_by_path: dict, runs: int,
+                  min_sparse: float | None) -> int:
+    """The config-3 batches on one corpus: plan kinds and the share of
+    sparse plans (0 when ``min_sparse`` is None, else at least it), K1 on
+    each batch's work list, one counted ``search_batch`` with exactly one
+    K1 launch, results equal to the CPU port, the count of queries that
+    find a document (all, for the corpus-drawn pairs), timing. Returns the
+    K1 max abs error."""
+    data = gpu.device.data_pytree()
+    max_err = 0
+    for name, qs in batches.items():
+        path = f"{tag} {name}"
+        cqs = [gpu.plan(q) for q in qs]
+        share = sum(cq.sig.sparse for cq in cqs) / len(cqs)
+        print(f"{path}: plans {dict(Counter(cq.sig.expr[0] for cq in cqs))}"
+              f", sparse share {share:.3f}, packed slots "
+              f"{sum(bool(p[0]) for cq in cqs for p in cq.sig.slot_packed)}"
+              f" of {sum(cq.sig.n_slots for cq in cqs)}")
+        if (share > 0) if min_sparse is None else (share < min_sparse):
+            raise AssertionError(f"{path}: sparse share {share:.3f}")
+        if not reads_packed(gpu, qs):
+            raise AssertionError(f"{path}: no packed window on the path")
+        max_err = max(max_err, check_batch_lists({path: [
+            w for cq in cqs
+            for w in packed_windows(cq.sig, cq.slot_pb, data, cq.runtime)]}))
+        res, _ = run_counted(path, gpu, qs, launches_by_path)
+        check_equal(path, qs, res, cpu.search_batch(qs))
+        found = sum(r.total_found > 0 for r in res)
+        print(f"{path}: {found} of {len(qs)} queries find a document")
+        if name == "corpus pairs" and found != len(qs):
+            raise AssertionError(f"{path}: a corpus-drawn pair found nothing")
+        time_batch(path, gpu, qs, runs)
+    return max_err
+
+
 def set_sparse_mode(mode: str, *indexes: SearchIndex) -> None:
     """The planner's MT_SPARSE override; cached plans are dropped."""
     os.environ["MT_SPARSE"] = mode
@@ -688,11 +830,21 @@ def main() -> int:
     time_decode(f"c={main_c} {big_nb} blocks rowids (beyond L2)",
                 [_random_window(main_c, big_nb, True, gen)], iters=20,
                 flush=False)
+
+    # 8. config 3 at 200k: WorkloadGen's phrases / ~5 proximity, and pairs
+    # drawn from the corpus that must each find a document; dense plans
+    # (WorkloadGen.config3 returns warm-up and measured twins: the latter)
+    c3 = {"config3": bench_corpus.WorkloadGen(
+              np.random.RandomState(17), VOCAB, packed).config3(BATCH)[1],
+          "corpus pairs": pair_queries(packed, np.random.RandomState(18),
+                                       BATCH, PAIR_MAX_DF)}
+    max_err = max(max_err, config3_phase("200k", gpu, cpu, c3,
+                                         launches_by_path, 3, None))
     del gpu, cpu, packed, data, batch_items, plans, all_plans
     torch.cuda.empty_cache()
     print(f"{since(t_start)} 200k phases done")
 
-    # 8. the large index: sparse union and filter-first plans
+    # 9. the large index: sparse union and filter-first plans
     n_big = BIG_DOCS
     tag = f"{n_big // 1000}k"
     t0 = time.perf_counter()
@@ -714,7 +866,7 @@ def main() -> int:
     print(f"{tag} upload to cpu: {time.perf_counter() - t0:.1f} s")
     set_sparse_mode("auto", gpu, cpu)
 
-    # 8a. config 1 and 2
+    # 9a. config 1 and 2
     gen = bench_corpus.WorkloadGen(np.random.RandomState(8), VOCAB, big)
     big_batches = {"config1": config1_queries(gen, BATCH),
                    "config2": config2_queries(gen, BATCH)}
@@ -751,7 +903,16 @@ def main() -> int:
         compare_sparse_dense(f"{tag} {name}", gpu, qs, 3)
     print(f"{since(t_start)} {tag} config 1/2 done")
 
-    # 8b, 8c. filter-first: MATCH-less scans, single terms under a filter
+    # 9b. config 3 at 1M: the same two kinds of batch, sparse plans
+    c3 = {"config3": bench_corpus.WorkloadGen(
+              np.random.RandomState(19), VOCAB, big).config3(BATCH)[1],
+          "corpus pairs": pair_queries(big, np.random.RandomState(20), BATCH,
+                                       PAIR_MAX_DF)}
+    max_err = max(max_err, config3_phase(tag, gpu, cpu, c3,
+                                         launches_by_path, 3, 0.9))
+    print(f"{since(t_start)} {tag} config 3 done")
+
+    # 9c, 9d. filter-first: MATCH-less scans, single terms under a filter
     scans = scan_queries(np.random.RandomState(9), BATCH)
     ft = ft_scan_queries(gpu, BATCH)
     if len(ft) < BATCH:
@@ -775,7 +936,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"{since(t_start)} {tag} filter-first done")
 
-    # 9. every filter kind on a small index, MT_SPARSE auto and always
+    # 10. every filter kind on a small index, MT_SPARSE auto and always
     t0 = time.perf_counter()
     small = attr_index()
     gpu = SearchIndex(small, device="cuda")
@@ -800,6 +961,43 @@ def main() -> int:
         time_batch(name, gpu, qs, 3)
     set_sparse_mode("auto", gpu, cpu)
     print(f"{since(t_start)} filter kinds done")
+
+    # 11. every positional operator, limit and ranker on a small index,
+    # and 2-word phrases on its bigram_index twin, MT_SPARSE auto and always
+    for variant, bigram, qs in (("positional kinds", "",
+                                 positional_kind_queries()),
+                                ("bigram phrases", "all", bigram_queries())):
+        t0 = time.perf_counter()
+        small = positional_index(bigram)
+        gpu = SearchIndex(small, device="cuda")
+        cpu = SearchIndex(small, device="cpu")
+        print(f"{variant}: {small.n_docs} docs built and uploaded in "
+              f"{time.perf_counter() - t0:.1f} s")
+        if not reads_packed(gpu, qs):
+            raise AssertionError(f"{variant}: no packed window on the path")
+        for mode in ("auto", "always"):
+            set_sparse_mode(mode, gpu, cpu)
+            cqs = [gpu.plan(q) for q in qs]
+            spaces = Counter("sparse" if cq.sig.sparse else "dense"
+                             for cq in cqs)
+            print(f"{variant}, MT_SPARSE={mode}: plans {dict(spaces)}; "
+                  f"rankers {dict(Counter(cq.sig.ranker for cq in cqs))}; "
+                  f"limited slots "
+                  f"{sum(len(cq.sig.slot_limited) for cq in cqs)}, merge "
+                  f"groups {sum(len(cq.sig.merge_groups) for cq in cqs)}, "
+                  f"repeated-keyword plans "
+                  f"{sum(bool(cq.sig.has_dupes) for cq in cqs)}")
+            if mode == "always" and not all(cq.sig.sparse for cq in cqs):
+                raise AssertionError(f"{variant}: MT_SPARSE=always left a "
+                                     "plan dense")
+            name = f"{variant} ({mode})"
+            res, _ = run_counted(name, gpu, qs, launches_by_path)
+            check_equal(name, qs, res, cpu.search_batch(qs))
+            print(f"{name}: {sum(r.total_found > 0 for r in res)} of "
+                  f"{len(qs)} queries find a document")
+            time_batch(name, gpu, qs, 3)
+        set_sparse_mode("auto", gpu, cpu)
+    print(f"{since(t_start)} positional kinds done")
 
     launches = sum(launches_by_path.values())
     print(json.dumps({"kernels": [{

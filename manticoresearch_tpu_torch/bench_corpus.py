@@ -3,7 +3,9 @@
 ``build_corpus`` and ``WorkloadGen`` are copies of ``bench.build_corpus``
 and ``bench.WorkloadGen`` that build with the port's own builder and make
 the port's ``SearchQuery``: the same seed gives the same corpus and the
-same draws.
+same draws. ``positional_pairs`` draws term pairs that stand near each
+other in a document, so that phrase and proximity queries made of them
+find something.
 """
 from __future__ import annotations
 
@@ -34,6 +36,51 @@ def build_corpus(n_docs: int, vocab: int, avg_len: int, seed: int = 42):
         vocab=[f"t{i:0{width}d}" for i in range(vocab)],
     )
     return packed
+
+
+def positional_pairs(packed, rng, n: int, max_gap: int,
+                     max_df: int | None = None) -> list[tuple]:
+    """n pairs (term_a, term_b) of distinct terms whose hits stand 1 to
+    ``max_gap`` positions apart, a before b, in one field of a random
+    document, read from the index's own posting and hit arrays: a phrase
+    ``"a b"`` (max_gap 1) or a proximity ``"a b"~k`` (max_gap <= k) made of
+    such a pair matches at least that document. ``max_df`` keeps to terms
+    of at most that many documents (the hits of other terms are skipped,
+    so "apart" still counts every position)."""
+    key_mask = ~(1 << 23)
+    out = []
+    while len(out) < n:
+        rows = rng.choice(packed.n_docs, n, replace=False)
+        sel = np.flatnonzero(np.isin(packed.post_rowid, rows))
+        terms = np.searchsorted(packed.term_offsets, sel, side="right") - 1
+        for r in rows:
+            here = packed.post_rowid[sel] == r
+            keys, tids = [], []
+            for p, t in zip(sel[here], terms[here]):
+                h0, h1 = packed.post_hit_offset[p], packed.post_hit_offset[p + 1]
+                k = packed.hit_packed[h0:h1] & key_mask
+                keys.append(k)
+                tids.append(np.full(len(k), t))
+            if not keys:
+                continue
+            keys, tids = np.concatenate(keys), np.concatenate(tids)
+            if max_df is not None:
+                keep = packed.term_docs[tids] <= max_df
+                keys, tids = keys[keep], tids[keep]
+                if not len(keys):
+                    continue
+            order = np.argsort(keys, kind="stable")
+            keys, tids = keys[order], tids[order]
+            i = int(rng.randint(len(keys)))
+            ok = ((keys > keys[i]) & (keys - keys[i] <= max_gap)
+                  & (keys >> 24 == keys[i] >> 24) & (tids != tids[i]))
+            if ok.any():
+                j = int(rng.choice(np.flatnonzero(ok)))
+                out.append((packed.term_strs[tids[i]],
+                            packed.term_strs[tids[j]]))
+                if len(out) == n:
+                    break
+    return out
 
 
 class WorkloadGen:

@@ -7,11 +7,17 @@ grouped call, run ``ops.search`` on the index's device, hydrate the
 result. ``SearchQuery``, ``Match``, ``WordStat`` and ``SearchResult`` have
 the fields of the JAX module's.
 
-Not in this slice, each raising ``NotImplementedError``: GROUP BY, JSON
-ORDER BY, late filters (expressions, and MVA values past 32 bits),
-``ranker=expr`` / ``sph04`` and ``PACKEDFACTORS()``, plus every plan shape
-``ops.search.check_in_slice`` refuses. A filter on a JSON path goes to the
-planner, which evaluates it on the host into a row bitmask.
+Every MATCH shape of the JAX package runs: the boolean operators, the
+positional operators (phrase, proximity, NEAR / NOTNEAR, SENTENCE,
+PARAGRAPH, bigram), field, position and zone limits (ZONESPAN included),
+wildcard merge groups and repeated keywords, under the rankers
+proximity_bm25, bm25, proximity, wordcount, matchany, none and fieldmask,
+in the dense, sparse-union and filter-first row spaces. Not in the port
+yet, each raising ``NotImplementedError``: GROUP BY, JSON ORDER BY, late
+filters (expressions, and MVA values past 32 bits), ``ranker=expr`` /
+``sph04`` and ``PACKEDFACTORS()``, and indexes of more than 32 full-text
+fields (``ops.search.check_in_slice``). A filter on a JSON path goes to
+the planner, which evaluates it on the host into a row bitmask.
 """
 from __future__ import annotations
 
@@ -102,7 +108,8 @@ def _wants_packedfactors(select) -> bool:
 def _check_query_in_slice(q: SearchQuery, schema) -> None:
     """Refuse, before planning, what the port does not run. ranker=expr
     (and sph04, and PACKEDFACTORS() which forces it) stops here: the
-    port's planner has no expression ranker."""
+    port's planner has no expression ranker. The plan shapes the search
+    program does not run raise from ``ops.search.check_in_slice``."""
     def no(feature: str):
         raise NotImplementedError(f"{feature} is not ported to the PyTorch "
                                   "search path yet")
@@ -261,9 +268,11 @@ class SearchIndex:
         return res
 
     def search_batch(self, queries: list[SearchQuery]) -> list[SearchResult]:
-        """One grouped decode of every query's packed posting windows, then
-        the queries grouped by plan shape run group by group; every group's
-        [B, 2k+1] result goes into one tensor, fetched to the host once."""
+        """One grouped decode of every query's packed posting windows (one
+        launch of the bit-plane kernel on the card, whatever the plan
+        shapes), then the queries grouped by plan shape run group by group;
+        every group's [B, 2k+1] result goes into one tensor, fetched to the
+        host once."""
         t0 = time.perf_counter()
         results: list[SearchResult | None] = [None] * len(queries)
         plans: list[CompiledQuery | None] = [None] * len(queries)
@@ -276,7 +285,7 @@ class SearchIndex:
                 results[i] = SearchResult([], 0, 0, 0.0, [], error=str(e))
                 continue
             plans[i] = cq
-            key = (cq.sig, cq.slot_pb, cq.slot_hb)
+            key = (cq.sig, cq.slot_pb, cq.slot_hb, cq.n_hit_iters)
             groups.setdefault(key, []).append(i)
 
         data = self.device.data_pytree()

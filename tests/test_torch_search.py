@@ -142,12 +142,13 @@ def test_delete_matches_jax():
 
 def test_out_of_slice_shapes_raise(example):
     _, idx = example
-    with pytest.raises(NotImplementedError, match="phrase"):
-        idx.search(SearchQuery(match='"test one"'))
+    with pytest.raises(NotImplementedError, match="PACKEDFACTORS"):
+        idx.search(SearchQuery(match='"test one"',
+                               select=["id", "PACKEDFACTORS()"]))
     with pytest.raises(NotImplementedError, match="ranker=expr"):
         idx.search(SearchQuery(match="test", ranker=("expr", "bm25")))
-    with pytest.raises(NotImplementedError, match="field-"):
-        idx.search_batch([SearchQuery(match="@title test")])
+    with pytest.raises(NotImplementedError, match="ranker=sph04"):
+        idx.search_batch([SearchQuery(match="@title test", ranker="sph04")])
     with pytest.raises(NotImplementedError, match="GROUP BY"):
         idx.search(SearchQuery(match="test", group_by="group_id"))
     with pytest.raises(NotImplementedError, match="expression"):
