@@ -73,7 +73,33 @@ its results are held equal to the same queries on ``device="cpu"``.
     ``index_sp`` and ``min_prefix_len=1``, and 2-word phrases on its
     ``bigram_index`` twin, under ``MT_SPARSE`` auto and always: the same
     launch rule as phase 10, equal to the CPU port.
-Each batch of phases 5-11 prints its warm walls and one profiled run
+12. Config 4 at 200k (after phase 8, dense plans): the measured batch of
+    ``WorkloadGen.config4(32)`` (``GROUP BY group_id``, ``count(*)``,
+    ``sum(year)``, ``ORDER BY @count desc``, top 10), its twin with
+    ``count(*), avg(year)`` (the ordered segment-sum kernel at full width),
+    and a mixed batch of 16 config-4 and 16 config-2 queries: the share of
+    dense plans, ``n_groups`` and ``found`` of a few queries, one
+    bit-plane launch per batch, one segment-sum launch per float or AVG
+    aggregate, results (aggregates included) equal to the CPU port. The
+    same two config-4 batches at 1M (phase 9e), their sparse share printed.
+13. Every group-by kind on a small index with float, string, bigint, MVA,
+    JSON and timestamp attributes, under ``MT_SPARSE`` auto and always:
+    every aggregate, group order and WITHIN GROUP ORDER BY kind,
+    expression and string keys, the host routes (MVA, bigint and JSON-path
+    keys, COUNT(DISTINCT id)), GROUP_CONCAT, HAVING, GROUP N BY, an
+    expression late filter and ORDER BY a JSON path, in one batch: one
+    bit-plane launch, equal to the CPU port.
+14. The ordered segment-sum kernel against its plain version (on a CPU
+    copy of the same inputs, where the plain version is defined):
+    1-member groups, one group of 2^20 members, a run of ineligible
+    entries into the sink, no eligible entry, order-dependent values
+    (1e8, 1, -1e8 patterns), -0.0, and every call of the 200k and 1M
+    config-4 AVG batches; bit-exact. Timed at each batch's calls (the
+    kernels line takes the 1M batch's): device time (the three launches
+    of one call), the bound (8 bytes per position read, 4 per group
+    written, over 3.35 TB/s), the plain version on the host CPU and
+    ``index_add_`` on the card (the library yardstick, timed here only).
+Each batch of phases 5-13 prints its warm walls and one profiled run
 (device time, busy share, kernel launches, host waits and copies).
 
 The last three lines of standard output are one JSON object with the
@@ -88,6 +114,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -95,6 +122,7 @@ import torch
 from manticoresearch_tpu_torch import bench_corpus
 from manticoresearch_tpu_torch.exec.searcher import SearchIndex, SearchQuery
 from manticoresearch_tpu_torch.ops import _build
+from manticoresearch_tpu_torch.ops import groupby as gb
 from manticoresearch_tpu_torch.ops import packed_store as ps
 from manticoresearch_tpu_torch.ops.search import packed_windows, window_kinds
 from manticoresearch_tpu_torch.query.planner import AttrFilterDef
@@ -108,6 +136,13 @@ KERNEL_SOURCE = "manticoresearch_tpu_torch/csrc/bitplane_decode.cu"
 KERNEL_REPLACES = "manticoresearch_tpu/ops/pfor.py:109"
 KERNEL_EVENT = "bitplane_decode_grouped"
 KERNEL_SMEM_ITEMS = 2048   # csrc/bitplane_decode.cu: kSmemItems
+SEG_SOURCE = "manticoresearch_tpu_torch/csrc/segment_sum.cu"
+SEG_REPLACES = "manticoresearch_tpu/ops/groupby.py:145"
+SEG_EVENT = "seg_"         # its three kernels: seg_init, seg_bounds, seg_walk
+C4_BATCH = 32              # bench.py's config-4 batch: 128 // 4
+# segment-sum launches of each counted path (the bit-plane kernel's are in
+# launches_by_path)
+SEG_BY_PATH: dict = {}
 
 
 # --------------------------------------------------------------------------
@@ -327,6 +362,115 @@ def bigram_queries() -> list[SearchQuery]:
              '"w5 w1" -w2')]
 
 
+def config4_batches(packed, seed: int, mixed: bool) -> dict:
+    """WorkloadGen's measured config-4 batch, its twin with ``count(*),
+    avg(year)``, and (``mixed``) 16 config-4 beside 16 config-2 queries."""
+    gen = bench_corpus.WorkloadGen(np.random.RandomState(seed), VOCAB, packed)
+    c4 = gen.config4(C4_BATCH)[1]
+    out = {"config4": c4,
+           "config4 avg": [replace(q, select=["count(*)", "avg(year)"])
+                           for q in c4]}
+    if mixed:
+        half = C4_BATCH // 2
+        out["config4 + config2"] = c4[:half] + config2_queries(gen, half)
+    return out
+
+
+def group_counts(idx: SearchIndex, q: SearchQuery) -> tuple[int, int]:
+    """(n_groups, found) of one grouped query, from its program's output."""
+    cq, gspec = idx._plan_grouped(q)[:2]
+    out = idx._run_round([("group", cq, gspec)])[0]
+    return out["n_groups"], out["found"]
+
+
+GROUP_DOCS = 4000
+GROUP_PRICES = np.asarray([1e8, 1.0, -1e8, 0.5, 3.25, -2.0, 1e-3, 7.0],
+                          np.float32)
+
+
+def group_index():
+    """A small index for every group-by kind: uint ``g`` (40 groups) and
+    ``year``, a float ``price`` whose sums depend on the add order, a
+    string, a bigint, an MVA, JSON, a timestamp and ids past 2^32."""
+    from manticoresearch_tpu_torch.index.builder import IndexBuilder
+    from manticoresearch_tpu_torch.schema import AttrDef, AttrType, Schema
+    rng = np.random.RandomState(23)
+    words = [f"w{i}" for i in range(30)]
+    docs = []
+    for i in range(1, GROUP_DOCS + 1):
+        docs.append(dict(
+            id=100 + 3 * i if i <= GROUP_DOCS - 3 else (1 << 33) + i,
+            title=words[i % 30],
+            body=" ".join(words[int(z) % 30] for z in rng.zipf(1.3, 10)),
+            g=int(rng.randint(0, 40)), year=2000 + i % 20,
+            price=float(GROUP_PRICES[rng.randint(len(GROUP_PRICES))]),
+            s=["red", "green", "blue", ""][i % 4],
+            big=int(rng.choice([-1, 1]) * rng.randint(0, 2**40)),
+            tags=[int(x) for x in rng.randint(0, 40, rng.randint(0, 6))],
+            meta=json.dumps({"a": int(rng.randint(0, 50)),
+                             "b": ["x", "y", "z"][i % 3]}),
+            ts=int(rng.randint(0, 2**31 - 1))))
+    b = IndexBuilder(Schema(fields=["title", "body"],
+                            attrs=[AttrDef("g", AttrType.UINT),
+                                   AttrDef("year", AttrType.UINT),
+                                   AttrDef("price", AttrType.FLOAT),
+                                   AttrDef("s", AttrType.STRING),
+                                   AttrDef("big", AttrType.BIGINT),
+                                   AttrDef("tags", AttrType.MVA),
+                                   AttrDef("meta", AttrType.JSON),
+                                   AttrDef("ts", AttrType.TIMESTAMP)]))
+    b.add_documents(docs)
+    return b.build()
+
+
+GROUP_AGGS = ["count(*)", "sum(year)", "sum(price)", "avg(year)",
+              "avg(price)", "min(price)", "max(price)", "min(year)",
+              "max(year)", "count(distinct year)"]
+
+
+def group_kind_queries() -> list[SearchQuery]:
+    """Every aggregate, order, within kind, key kind and host route."""
+    f = AttrFilterDef
+    kinds = [
+        dict(group_by="g", select=GROUP_AGGS),
+        dict(group_by="g", select=GROUP_AGGS[:5], sort=[("@groupby", True)]),
+        dict(group_by="g", select=["avg(price)"], sort=[("@count", False)]),
+        dict(group_by="g", select=["sum(price)"], sort=[("@count", True)]),
+        dict(group_by="g", select=["count(*)"], sort=[("id", False)]),
+        dict(group_by="g", select=["avg(year)"], sort=[("year", False)]),
+        dict(group_by="g", select=["count(*)"], sort=[("price", True)]),
+        dict(group_by="g", select=["sum(price)"],
+             within_sort=[("year", False)]),
+        dict(group_by="g", select=["count(*)"],
+             within_sort=[("price", True)]),
+        dict(group_by="g", select=["count(*)", "*"],
+             within_sort=[("id", False)]),
+        dict(group_by="year * 3 - g", select=["count(*)"]),
+        dict(group_by="year % 7", select=["avg(price)"]),
+        dict(group_by="IF(price > 1, g, 100 + g)", select=["sum(price)"]),
+        dict(group_by="g IN (1, 3, 5)", select=["count(*)"]),
+        dict(group_by="INTERVAL(year, 2005, 2010, 2015)",
+             select=["avg(year)"]),
+        dict(group_by="MONTH(ts)", select=["count(*)"],
+             sort=[("@count", False)]),
+        dict(group_by="FIBONACCI(g)", select=["count(*)"]),
+        dict(group_by="s", select=["count(*)", "avg(price)"]),
+        dict(group_by="tags", select=["count(*)", "sum(year)"]),
+        dict(group_by="big", select=["count(*)"]),
+        dict(group_by="meta.a", select=["count(*)", "avg(year)"]),
+        dict(group_by="g", select=["count(*)", "count(distinct id)"]),
+        dict(group_by="g", select=["count(*)", "group_concat(year)"]),
+        dict(group_by="g", select=["count(*)"], having=("count(*)", ">", 20)),
+        dict(group_by="g", select=["count(*)"], group_n=2),
+        dict(group_by="g", select=["count(*)"],
+             filters=[f("year", "range_i", lo=2003, hi=2012)]),
+        dict(filters=[f("year+1", "range_i", lo=2005, hi=2012)]),
+        dict(sort=[("meta.a", True)]),
+    ]
+    return [SearchQuery(match="w1 | w3", limit=20, max_matches=GROUP_DOCS,
+                        **kw) for kw in kinds]
+
+
 def host_top10(idx: SearchIndex, term: str) -> list[tuple[int, int]]:
     """Host numpy model of the reference scoring for one term (the model
     of bench.parity_recall_at_10): bm25part = trunc((idf*tfq + 0.5)*1000),
@@ -356,7 +500,7 @@ def host_top10(idx: SearchIndex, term: str) -> list[tuple[int, int]]:
 
 def _summary(r) -> tuple:
     return (r.error, r.total, r.total_found,
-            [(m.docid, m.weight) for m in r.matches],
+            [(m.docid, m.weight, m.attrs) for m in r.matches],
             [(w.word, w.docs, w.hits) for w in r.word_stats])
 
 
@@ -571,42 +715,75 @@ def profile_batch(idx: SearchIndex, queries: list[SearchQuery]) -> dict:
                      for name, (n, us) in top])
 
 
+def program_plan(idx: SearchIndex, q: SearchQuery):
+    """The plan of a query's program (its group-by plan where it groups),
+    or None where planning refuses it (a late filter's expression: its
+    window query runs the same MATCH)."""
+    try:
+        return idx._plan_grouped(q)[0] if q.group_by else idx.plan(q)
+    except (ValueError, NotImplementedError):
+        return None
+
+
 def reads_packed(idx: SearchIndex, queries: list[SearchQuery]) -> bool:
     """Whether any of the queries' programs reads a packed window."""
-    return any(window_kinds(idx.plan(q).sig) for q in queries)
+    return any(cq is not None and window_kinds(cq.sig)
+               for cq in (program_plan(idx, q) for q in queries))
+
+
+def float_aggregates(idx: SearchIndex, queries: list[SearchQuery]) -> int:
+    """Float SUM and AVG aggregates of the device-grouped queries: each
+    takes one segment-sum launch."""
+    return sum(a.kind == "avg" or (a.is_float and a.kind == "sum")
+               for q in queries if q.group_by
+               for a in idx._plan_grouped(q)[1].aggs)
 
 
 def run_counted(name: str, idx: SearchIndex, queries: list[SearchQuery],
-                launches_by_path: dict) -> tuple[list, float]:
+                launches_by_path: dict,
+                want_seg: int | None = 0) -> tuple[list, float]:
     """Drive one ``search_batch`` with the launch counters set to 0 just
-    before and read just after: exactly one kernel launch where the batch
-    reads packed windows, else none, and never a plain decode."""
+    before and read just after: exactly one bit-plane launch where the
+    batch reads packed windows, else none, ``want_seg`` segment-sum
+    launches (any number when None), and never a plain version."""
     want = 1 if reads_packed(idx, queries) else 0
     torch.cuda.synchronize()
     ps.LAUNCHES.reset()
+    gb.LAUNCHES.reset()
     t0 = time.perf_counter()
     results = idx.search_batch(queries)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain = ps.LAUNCHES.kernel, ps.LAUNCHES.plain
+    seg, seg_plain = gb.LAUNCHES.kernel, gb.LAUNCHES.plain
     launches_by_path[name] = launches
+    if seg or want_seg:
+        SEG_BY_PATH[name] = seg
     print(f"{name}: bitplane_decode launches {launches} (expected {want}), "
-          f"{ps.LAUNCHES.blocks} blocks, plain decodes {plain}; first run "
+          f"{ps.LAUNCHES.blocks} blocks, plain decodes {plain}; "
+          f"segment_sum_ordered launches {seg} (expected "
+          f"{'any' if want_seg is None else want_seg}), "
+          f"{gb.LAUNCHES.positions} positions; first run "
           f"{wall * 1e3:.1f} ms")
     if launches != want or plain != 0:
         raise AssertionError(f"{name}: {launches} kernel launches and "
                              f"{plain} plain decodes, expected {want} and 0")
+    if seg_plain or (want_seg is not None and seg != want_seg):
+        raise AssertionError(f"{name}: {seg} segment-sum launches and "
+                             f"{seg_plain} plain sums, expected {want_seg} "
+                             "and 0")
     return results, wall
 
 
 def check_equal(name: str, queries: list, got: list, want: list) -> None:
     for q, g, w in zip(queries, got, want):
         if g.error is not None or w.error is not None:
-            raise AssertionError(f"{name} {q.match!r}: error "
+            raise AssertionError(f"{name} {q.match!r} {q.group_by}: error "
                                  f"{g.error or w.error}")
         if _summary(g) != _summary(w):
-            raise AssertionError(f"{name} {q.match!r} {q.filters}: cuda "
-                                 f"result {_summary(g)} != cpu {_summary(w)}")
+            raise AssertionError(f"{name} {q.match!r} {q.filters} "
+                                 f"{q.group_by} {q.select}: cuda result "
+                                 f"{_summary(g)} != cpu {_summary(w)}")
     found = [r.total_found for r in got]
     print(f"{name}: {len(queries)} queries equal on cuda and cpu; "
           f"total_found min/median/max {min(found)}/"
@@ -708,6 +885,161 @@ def config3_phase(tag: str, gpu: SearchIndex, cpu: SearchIndex,
             raise AssertionError(f"{path}: a corpus-drawn pair found nothing")
         time_batch(path, gpu, qs, runs)
     return max_err
+
+
+def config4_phase(tag: str, gpu: SearchIndex, cpu: SearchIndex,
+                  batches: dict, launches_by_path: dict, runs: int,
+                  dense: bool) -> None:
+    """The config-4 batches on one corpus: the share of dense and sparse
+    group-by plans (all dense when ``dense``), ``n_groups`` and ``found``
+    of a few queries, one counted ``search_batch`` with one bit-plane
+    launch and one segment-sum launch per float or AVG aggregate, results
+    equal to the CPU port, timing."""
+    for name, qs in batches.items():
+        path = f"{tag} {name}"
+        cqs = [program_plan(gpu, q) for q in qs if q.group_by]
+        share = sum(cq.sig.sparse for cq in cqs) / len(cqs)
+        print(f"{path}: {len(cqs)} group-by plans, dense share "
+              f"{1 - share:.3f}, sparse share {share:.3f}")
+        if dense and share > 0:
+            raise AssertionError(f"{path}: a group-by plan is not dense")
+        counts = [group_counts(gpu, q) for q in qs[:4] if q.group_by]
+        print(f"{path}: (n_groups, found) of the first queries {counts}")
+        res, _ = run_counted(path, gpu, qs, launches_by_path,
+                             want_seg=float_aggregates(gpu, qs))
+        check_equal(path, qs, res, cpu.search_batch(qs))
+        time_batch(path, gpu, qs, runs)
+
+
+def capture_segment_calls(idx: SearchIndex, queries: list) -> list:
+    """The (values, gid, n_out) of every segment sum one search_batch
+    makes (copies), in call order."""
+    calls = []
+    original = gb.segment_sum_ordered
+
+    def record(values, gid, n_out):
+        calls.append((values.clone(), gid.clone(), n_out))
+        return original(values, gid, n_out)
+    gb.segment_sum_ordered = record
+    try:
+        idx.search_batch(queries)
+    finally:
+        gb.segment_sum_ordered = original
+    torch.cuda.synchronize()
+    return calls
+
+
+def segment_cases() -> list:
+    """(name, values f32, gid int32, n_out) numpy inputs for the segment
+    kernel's checks."""
+    f32, i32 = np.float32, np.int32
+    rng = np.random.RandomState(5)
+    n = 1 << 20
+    big = (rng.randn(n) * 10.0 ** rng.randint(-3, 9, n)).astype(f32)
+    runs = np.sort(rng.randint(0, 100, 300_000)).astype(i32)
+    sink_n = 700_000
+    pattern = np.tile(np.asarray([1e8, 1, -1e8, 1], f32), 50_000)
+    negz = np.where(rng.rand(200_000) < 0.5, f32(-0.0),
+                    rng.randn(200_000).astype(f32))
+    negz[:1000] = -0.0
+    return [
+        ("1-member groups", rng.randn(100_000).astype(f32),
+         np.arange(100_000, dtype=i32), 100_000),
+        ("one group of 2^20 members", big, np.zeros(n, i32), n),
+        ("groups then a sink run of ineligible entries",
+         np.concatenate([rng.randn(300_000).astype(f32) * 1000,
+                         np.zeros(sink_n, f32)]),
+         np.concatenate([runs, np.full(sink_n, 999_999, i32)]), 1_000_000),
+        ("no eligible entry", np.zeros(n, f32), np.full(n, n - 1, i32), n),
+        ("1e8, 1, -1e8, 1 patterns", pattern,
+         np.repeat(np.arange(1000, dtype=i32), 200), 1000),
+        ("-0.0 values", negz, np.repeat(np.arange(2000, dtype=i32), 100),
+         2000),
+    ]
+
+
+def check_segment_kernel(captured: list) -> float:
+    """Kernel vs plain version, bit-exact, on the cases above and on
+    every captured call of the main path; returns the max abs error."""
+    max_err = 0.0
+    items = [(name, torch.from_numpy(v), torch.from_numpy(g), n)
+             for name, v, g, n in segment_cases()]
+    items += [(f"main-path call {i}", v.cpu(), g.cpu(), n)
+              for i, (v, g, n) in enumerate(captured)]
+    for name, v, g, n in items:
+        got = gb.segment_sum_ordered(v.cuda(), g.cuda(), n).cpu()
+        want = gb.segment_sum_plain(v, g, n)
+        err = float((got.double() - want.double()).abs().max()) if n else 0.0
+        max_err = max(max_err, err)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"segment_sum_ordered {name}: kernel != "
+                                 f"plain version (max abs err {err})")
+    print(f"  segment_sum_ordered: {len(items) - len(captured)} cases and "
+          f"{len(captured)} main-path calls: bit-exact")
+    try:
+        gb.segment_sum_ordered(torch.zeros(4, device="cuda"),
+                               torch.zeros(4, dtype=torch.int64,
+                                           device="cuda"), 4)
+    except ValueError:
+        print("  int64 group ids raise ValueError")
+    else:
+        raise AssertionError("segment_sum_ordered took int64 group ids")
+    return max_err
+
+
+def time_segment(name: str, calls: list, iters: int) -> dict:
+    """Per-call times over one batch's captured calls: the kernel's
+    device time (its three launches, torch.profiler), the wrapper's call
+    time (CUDA events, in turns library, kernel, kernel, library),
+    ``index_add_`` on the card, the plain version on the host CPU, and
+    the bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    lib_in = [(v, g.long(), n) for v, g, n in calls]
+    cpu_in = [(v.cpu(), g.cpu(), n) for v, g, n in calls]
+
+    def kernel():
+        for v, g, n in calls:
+            gb.segment_sum_ordered(v, g, n)
+
+    def library():
+        for v, g, n in lib_in:
+            torch.zeros(n, dtype=torch.float32, device="cuda").index_add_(
+                0, g, v)
+    kernel()
+    library()
+    torch.cuda.synchronize()
+    lib1 = _event_ms(library, iters)
+    k1 = _event_ms(kernel, iters)
+    k2 = _event_ms(kernel, iters)
+    lib2 = _event_ms(library, iters)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            kernel()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and SEG_EVENT in e.name)
+    if us <= 0:
+        raise AssertionError("the profiler saw no segment-sum kernels")
+    t0 = time.perf_counter()
+    for v, g, n in cpu_in:
+        gb.segment_sum_plain(v, g, n)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    n_calls = len(calls)
+    byts = sum(8 * v.numel() + 4 * n for v, g, n in calls) / n_calls
+    r = dict(ms=us / 1e3 / iters / n_calls, call_ms=(k1 + k2) / 2 / n_calls,
+             library_ms=(lib1 + lib2) / 2 / n_calls,
+             plain_ms=plain_ms / n_calls,
+             bound_ms=byts / HBM_BYTES_PER_S * 1e3, bytes=byts)
+    positions = [v.numel() for v, _, _ in calls]
+    print(f"  segment_sum_ordered {name}: {n_calls} calls of "
+          f"{min(positions)}-{max(positions)} positions; per call: device "
+          f"{r['ms'] * 1e3:.2f} us (bound {r['bound_ms'] * 1e3:.2f} us, "
+          f"{r['bytes'] / 1e6:.3f} MB), wrapper {r['call_ms'] * 1e3:.2f} us, "
+          f"index_add_ on the card {r['library_ms'] * 1e3:.2f} us, plain "
+          f"version on the host CPU {r['plain_ms'] * 1e3:.2f} us")
+    return r
 
 
 def set_sparse_mode(mode: str, *indexes: SearchIndex) -> None:
@@ -840,6 +1172,12 @@ def main() -> int:
                                        BATCH, PAIR_MAX_DF)}
     max_err = max(max_err, config3_phase("200k", gpu, cpu, c3,
                                          launches_by_path, 3, None))
+
+    # 12. config 4 at 200k: GROUP BY group_id with count(*) and sum(year),
+    # its avg(year) twin, and a batch mixed with config 2; dense plans
+    c4 = config4_batches(packed, 21, True)
+    config4_phase("200k", gpu, cpu, c4, launches_by_path, 3, dense=True)
+    seg_calls_dense = capture_segment_calls(gpu, c4["config4 avg"])
     del gpu, cpu, packed, data, batch_items, plans, all_plans
     torch.cuda.empty_cache()
     print(f"{since(t_start)} 200k phases done")
@@ -932,6 +1270,13 @@ def main() -> int:
         time_batch(name, gpu, qs, 3)
     time_decode(f"{tag} config-1 batch", big_items[f"{tag} config1"],
                 iters=50, flush=True)
+
+    # 9e. config 4 at 1M: the same two config-4 batches; the segment sums
+    # of the AVG batch are kept for phase 14
+    c4 = config4_batches(big, 22, False)
+    config4_phase(tag, gpu, cpu, c4, launches_by_path, 3, dense=False)
+    seg_calls = capture_segment_calls(gpu, c4["config4 avg"])
+    print(f"{since(t_start)} {tag} config 4 done")
     del gpu, cpu, big, data, big_items
     torch.cuda.empty_cache()
     print(f"{since(t_start)} {tag} filter-first done")
@@ -999,6 +1344,37 @@ def main() -> int:
         set_sparse_mode("auto", gpu, cpu)
     print(f"{since(t_start)} positional kinds done")
 
+    # 13. every group-by kind on a small index, MT_SPARSE auto and always
+    t0 = time.perf_counter()
+    small = group_index()
+    gpu = SearchIndex(small, device="cuda")
+    cpu = SearchIndex(small, device="cpu")
+    print(f"group-by index: {small.n_docs} docs built and uploaded in "
+          f"{time.perf_counter() - t0:.1f} s")
+    qs = group_kind_queries()
+    for mode in ("auto", "always"):
+        set_sparse_mode(mode, gpu, cpu)
+        cqs = [cq for cq in (program_plan(gpu, q) for q in qs) if cq]
+        spaces = Counter("sparse" if cq.sig.sparse else "dense" for cq in cqs)
+        print(f"group-by kinds, MT_SPARSE={mode}: plans {dict(spaces)}")
+        name = f"group-by kinds ({mode})"
+        res, _ = run_counted(name, gpu, qs, launches_by_path, want_seg=None)
+        if not SEG_BY_PATH.get(name):
+            raise AssertionError(f"{name}: no segment-sum launch")
+        check_equal(name, qs, res, cpu.search_batch(qs))
+        time_batch(name, gpu, qs, 3)
+    set_sparse_mode("auto", gpu, cpu)
+    del gpu, cpu, small
+    print(f"{since(t_start)} group-by kinds done")
+
+    # 14. the segment-sum kernel: checks, and timing at the config-4 AVG
+    # batches' calls (the kernels line takes the 1M batch's)
+    seg_err = check_segment_kernel(seg_calls_dense + seg_calls)
+    time_segment("200k config-4 avg batch (dense, full width)",
+                 seg_calls_dense, iters=10)
+    seg = time_segment(f"{tag} config-4 avg batch", seg_calls, iters=20)
+    print(f"{since(t_start)} segment kernel done")
+
     launches = sum(launches_by_path.values())
     print(json.dumps({"kernels": [{
         "name": "bitplane_decode", "route": "cuda", "source": KERNEL_SOURCE,
@@ -1006,7 +1382,14 @@ def main() -> int:
         "launches_by_path": launches_by_path,
         "max_abs_err": max_err, "ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-        "bound_by": "bytes", "library_ms": None}]}))
+        "bound_by": "bytes", "library_ms": None}, {
+        "name": "segment_sum_ordered", "route": "cuda",
+        "source": SEG_SOURCE, "replaces": SEG_REPLACES,
+        "launches": sum(SEG_BY_PATH.values()),
+        "launches_by_path": SEG_BY_PATH, "max_abs_err": seg_err,
+        "ms": seg["ms"], "plain_ms": seg["plain_ms"],
+        "bound_ms": seg["bound_ms"], "bound_by": "bytes",
+        "library_ms": seg["library_ms"]}]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``manticoresearch_tpu_torch/csrc/`` compile with nvcc for
-Hopper (``sm_90a``) into one shared library with a plain C interface, which
-is loaded with ctypes. The build happens at first use, into
+Hopper (``sm_90a``), one nvcc process per source, all started together,
+and link into one shared library with a plain C interface, which is loaded
+with ctypes. The build happens at first use, into
 ``manticoresearch_tpu_torch/_build/`` (git-ignored), keyed on a hash of the
 sources and flags, so a fresh checkout builds everything on its first call
 and later processes reuse the library.
@@ -23,7 +24,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -61,6 +62,46 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                    ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.mt_segment_sum_ordered
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+
+def _run(procs: list) -> None:
+    """Wait for every (command, process); raise on the first failure."""
+    failed = None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                      f"{out}{err}")
+    if failed:
+        raise RuntimeError(failed)
+
+
+def _compile(srcs: list[Path], out: Path) -> None:
+    """One nvcc per source, all at once, then one link into ``out``."""
+    tmp_dir = BUILD_DIR / f"objs.{os.getpid()}"
+    tmp_dir.mkdir(parents=True, exist_ok=True)
+    try:
+        nvcc = _nvcc()
+        objs = [tmp_dir / f"{p.stem}.o" for p in srcs]
+        procs = []
+        for src, obj in zip(srcs, objs):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        _run(procs)
+        tmp = tmp_dir / out.name
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True))])
+        os.replace(tmp, out)   # atomic: concurrent builders agree
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
 
 
 def load_library() -> ctypes.CDLL:
@@ -74,16 +115,7 @@ def load_library() -> ctypes.CDLL:
             raise RuntimeError(f"no CUDA sources under {SRC_DIR}")
         out = BUILD_DIR / f"libmt_kernels_{_digest(srcs)}.so"
         if not out.is_file():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, out)   # atomic: concurrent builders agree
+            _compile(srcs, out)
         lib = ctypes.CDLL(str(out))
         _declare(lib)
         _lib = lib

@@ -25,6 +25,7 @@ Tolerance: exact. Everything compared is an integer, string, boolean or a
 float32 array copied or computed by the same numpy expression.
 """
 import dataclasses
+import json
 import enum
 
 import numpy as np
@@ -343,3 +344,127 @@ def test_from_jax_packed_round_trip():
     before = jax_packed.post_rowid.copy()
     copy.post_rowid[:] = -1
     np.testing.assert_array_equal(jax_packed.post_rowid, before)
+
+
+# --------------------------------------------------------------------------
+# expressions (host half), geodist, the multi-part sort helpers
+# --------------------------------------------------------------------------
+_TS = 1614834367   # 2021-03-04 05:06:07 UTC
+_ROW = {"tags": [5, 2, 9], "name": "abcd", "price": 7, "x": 2,
+        "j": {"arr": [1, 5, 9], "a": 1}, "js": '{"a": 3, "b": [1, 2]}'}
+# the inputs of tests/test_expr_funcs.py (deterministic ones), then more
+EXPR_HOST_CASES = [
+    "CRC32('hello')", "FIBONACCI(7)", "FIBONACCI(50)",
+    *(f"{fn}({_TS})" for fn in ("YEAR", "MONTH", "DAY", "YEARMONTH",
+                                "YEARMONTHDAY", "HOUR", "MINUTE", "SECOND",
+                                "WEEK")),
+    "TIMEDIFF(3723, 0)", "TIMEDIFF(0, 3723)",
+    "REMAP(1, 100, (1,2), (10,20))", "REMAP(9, 100, (1,2), (10,20))",
+    "CONCAT('a', 'b', 3)", "TO_STRING(42)", "LENGTH('hello')",
+    "LENGTH(tags)", "SUBSTRING_INDEX('www.example.com', '.', 2)",
+    "SUBSTRING_INDEX('www.example.com', '.', -1)", "REGEX(name, '^ab.*d$')",
+    "LEVENSHTEIN('kitten', 'sitting')", "LEVENSHTEIN('kitten', 'sitting', 1)",
+    "LEAST(3, 1, 2)", "GREATEST(3, 1, 2)", "LEAST(tags)", "GREATEST(tags)",
+    "EXIST('price', 42)", "EXIST('nosuch', 42)", "ATAN2(1, 1)",
+    "CONTAINS(POLY2D(0,0, 0,1, 1,1, 1,0), 0.5, 0.5)",
+    "CONTAINS(POLY2D(0,0, 0,1, 1,1, 1,0), 2.0, 0.5)",
+    "CONTAINS(GEOPOLY2D(0,0, 0,1, 1,1, 1,0), 0.5, 0.5)",
+    "ANY(x > 7 FOR x IN j.arr)", "ALL(x > 0 FOR x IN j.arr)",
+    "INDEXOF(x = 5 FOR x IN j.arr)", "j.missing IS NULL", "j.a IS NOT NULL",
+    "CONNECTION_ID()", "CURRENT_USER()", "MIN_TOP_WEIGHT()", "RAND(5)",
+    "1000000 * 1000000", "id + 1", "ABS(CRC32('test'))", "7 DIV 2",
+    "-7 DIV 2", "7 / 0", "-7 % 3", "IDIV(7, 2)", "BIGINT('12abc')",
+    "IF(1, 'a', 'b')", "'abc' = 'ABC'", "IN(tags, 2, 4)", "TO_STRING(j.arr)",
+    "js.a + 1", "js.b", "LEAST(j.arr)", "x BETWEEN 1 AND 3", "SQRT(-1)",
+    "LN(0)", "LOG10(100)", "POW(2, 10)", "CEIL(2.1)", "FLOOR(-2.1)",
+    "INTERVAL(5, 1, 3, 7)", "GEODIST(0.1, 0.2, 0.3, 0.4)",
+    "GEODIST(10, 20, 30, 40, {in=degrees, out=km})", "weight() * 2 + price",
+    "price > 5 AND x < 3", "NOT price", "price & 3 | 8",
+    # parse or evaluation errors
+    "NOSUCH(1)", "1 +", "`1abc`", "LOG10(tags)", "nosuch_attr + 1",
+    "CONTAINS(1, 2, 3)", "REGEX(name, '(')",
+]
+
+
+def _host_value(mod, text):
+    try:
+        tree = mod.parse_expr(text)
+    except mod.ExprError as e:
+        return ("parse error", str(e))
+    try:
+        return (tree, mod.eval_expr_host(tree, dict(_ROW), 17, 12345))
+    except mod.ExprError as e:
+        return (tree, "eval error", str(e))
+
+
+@pytest.mark.parametrize("text", EXPR_HOST_CASES)
+def test_expr_host_half_matches_jax(text):
+    from manticoresearch_tpu.query import expr as jax_expr
+    from manticoresearch_tpu_torch.query import expr as port_expr
+    assert _host_value(port_expr, text) == _host_value(jax_expr, text)
+    if not _host_value(jax_expr, text)[0] == "parse error":
+        tree = jax_expr.parse_expr(text)
+        assert port_expr.expr_attrs(tree) == jax_expr.expr_attrs(tree)
+
+
+def test_geodist_matches_jax():
+    from manticoresearch_tpu.utils import geodist as jax_geo
+    from manticoresearch_tpu_torch.utils import geodist as port_geo
+    rng = np.random.RandomState(3)
+    for _ in range(200):
+        lat1, lat2 = rng.uniform(-89, 89, 2)
+        lon1, lon2 = rng.uniform(-179, 179, 2)
+        if rng.rand() < 0.3:   # near points take the adaptive fast path
+            lat2, lon2 = lat1 + rng.uniform(-1, 1), lon1 + rng.uniform(-1, 1)
+        args = (float(lat1), float(lon1), float(lat2), float(lon2))
+        rad = tuple(np.radians(a) for a in args)
+        assert port_geo.geodist_adaptive_deg(*args) == \
+            jax_geo.geodist_adaptive_deg(*args)
+        assert port_geo.geodist_adaptive_rad(*rad) == \
+            jax_geo.geodist_adaptive_rad(*rad)
+        assert port_geo._sphere_rad(*rad) == jax_geo._sphere_rad(*rad)
+    poly = [float(v) for v in rng.uniform(-10, 10, 12)]
+    assert port_geo.geo_tesselate(poly) == jax_geo.geo_tesselate(poly)
+
+
+class _M:
+    def __init__(self, docid, weight, attrs):
+        self.docid, self.weight, self.attrs = docid, weight, attrs
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_multi_sort_helpers_match_jax(seed):
+    from types import SimpleNamespace
+
+    from manticoresearch_tpu.exec import multi as jax_multi
+    from manticoresearch_tpu_torch.exec import multi as port_multi
+    rng = np.random.RandomState(seed)
+    n = int(rng.randint(20, 90))
+    keys = [(int(rng.randint(0, 5)), int(rng.randint(0, 30)))
+            for _ in range(n)]
+    for size in (1, 7, n):
+        assert port_multi.ref_queue_order(keys, size) == \
+            jax_multi.ref_queue_order(keys, size)
+    vals = rng.randint(0, 6, n).tolist()
+    for m in (n, 25):
+        assert port_multi.sph_sort_indices(m, lambda i, j: vals[i] < vals[j]) \
+            == jax_multi.sph_sort_indices(m, lambda i, j: vals[i] < vals[j])
+    ents = [([(int(rng.randint(0, 4)), bool(rng.rand() < 0.5)),
+              (str(rng.randint(0, 3)), True)], int(rng.randint(0, 10)))
+            for _ in range(n)]
+    assert port_multi.ref_group_sort(ents) == jax_multi.ref_group_sort(ents)
+
+    def matches():
+        r = np.random.RandomState(seed + 10)
+        return [_M(int(d), int(r.randint(0, 3)),
+                   {"a": int(r.randint(0, 4)), "s": ["x", "y", ""][d % 3],
+                    "j": json.dumps({"k": int(r.randint(0, 3))})
+                    if d % 4 else "{}"})
+                for d in r.permutation(40) + 1]
+    for sort in ([("a", False), ("id", True)], [("s", False)],
+                 [("j.k", True)], [("j.k", False), ("weight", True)], None):
+        q = SimpleNamespace(sort=sort)
+        got, want = matches(), matches()
+        port_multi._apply_sort(got, q)
+        jax_multi._apply_sort(want, q)
+        assert [m.docid for m in got] == [m.docid for m in want]
