@@ -99,8 +99,30 @@ its results are held equal to the same queries on ``device="cpu"``.
     of one call), the bound (8 bytes per position read, 4 per group
     written, over 3.35 TB/s), the plain version on the host CPU and
     ``index_add_`` on the card (the library yardstick, timed here only).
-Each batch of phases 5-13 prints its warm walls and one profiled run
-(device time, busy share, kernel launches, host waits and copies).
+15. The expression ranker at 200k (after phase 12) and at 1M (after phase
+    9e), dense plans: the 64 config-2 queries of ``WorkloadGen.config2``
+    under ``ranker=expr('sum(lcs*user_weight)*1000+bm25')``, under
+    ``ranker=sph04``, and 32 of them with ``select=["id",
+    "PACKEDFACTORS()"]``: every plan dense with the expr ranker, K1 on each
+    batch's work list, exactly one K1 launch per batch, the factor scatters
+    through the segment-sum kernel (PACKEDFACTORS() batch) and no plain
+    sum, results and PACKEDFACTORS() strings equal to the CPU port, how
+    many of the formula batch's top-10 lists equal the default ranker's,
+    launches per query (the PACKEDFACTORS() batch profiled on its first 8
+    queries). The PACKEDFACTORS() batch's segment sums join phase 14's
+    checks and are timed there.
+16. Every formula of ``tests/test_expr_ranker.py`` (every factor,
+    ``bm25a``, ``bm25f`` with field weights, ``max_window_hits``), repeated
+    keywords and a phrase, sph04 and PACKEDFACTORS() (plain and json=1) in
+    one batch on phase 11's 3,000-document index (dense plans, as under
+    any ``MT_SPARSE``): one K1 launch (the batch reads packed windows),
+    equal to the CPU port.
+17. A 40-field index (two fieldmask words, every term raw): the fieldmask
+    ranker, field limits past field 32, sph04, ``field_mask`` in a formula,
+    PACKEDFACTORS() and a GROUP BY in one batch: no K1 launch, equal to the
+    CPU port.
+Each batch of phases 5-13 and 15-17 prints its warm walls and one profiled
+run (device time, busy share, kernel launches, host waits and copies).
 
 The last three lines of standard output are one JSON object with the
 kernels' numbers, the card's name and power limit, then
@@ -471,6 +493,97 @@ def group_kind_queries() -> list[SearchQuery]:
                         **kw) for kw in kinds]
 
 
+EXPR_FORMULA = "sum(lcs*user_weight)*1000+bm25"
+PF_SELECT = ["id", "PACKEDFACTORS()"]
+
+
+def expr_batches(packed, seed: int) -> tuple[list, dict]:
+    """The measured config-2 draws of ``WorkloadGen.config2(BATCH)`` and
+    their expression-ranker twins: the formula, sph04, and the first half
+    with PACKEDFACTORS()."""
+    gen = bench_corpus.WorkloadGen(np.random.RandomState(seed), VOCAB, packed)
+    qs = gen.config2(BATCH)[1]
+    return qs, {
+        "expr": [replace(q, ranker=("expr", EXPR_FORMULA)) for q in qs],
+        "sph04": [replace(q, ranker="sph04") for q in qs],
+        "packedfactors": [replace(q, select=PF_SELECT)
+                          for q in qs[:BATCH // 2]]}
+
+
+EXPR_FORMULAS = [
+    EXPR_FORMULA, "bm25f(1.2, 0.7)*1000",
+    "bm25f(1.2, 0.7, {title=5, body=1})*1000",
+    "sum(hit_count)*10 + doc_word_count", "field_mask*100 + sum(word_count)",
+    "sum(min_hit_pos)", "sum((sum_idf-min_idf)+(sum_idf-max_idf))*1000 + 7",
+    "sum(max_idf > min_idf)", "sum(sum_idf)*1000", "sum(exact_order)",
+    "sum(lccs)", "sum((wlccs-sum_idf)*1000) + 42", "sum(min_best_span_pos)",
+    "sum(max_window_hits(3))", "sum(min_gaps)*100", "sum(atc)*10000",
+    "bm25a(1.2, 0.75)*1000", "sum(tf_idf)*1000 + max_lcs + query_word_count",
+]
+EXPR_EVERY = ("sum(lcs*user_weight)*1000+bm25+bm25a(1.2,0.75)*100"
+              "+sum(tf_idf+sum_idf+wlccs+atc)*10+sum(min_idf)+sum(max_idf)"
+              "+sum(hit_count+word_count+exact_order+lccs+min_gaps)"
+              "+sum(min_hit_pos+min_best_span_pos+exact_hit)"
+              "+sum(max_window_hits(2))*3+field_mask+doc_word_count")
+
+
+def expr_kind_queries() -> list[SearchQuery]:
+    """Every formula of tests/test_expr_ranker.py on phase 11's index,
+    repeated keywords and a phrase, sph04 and PACKEDFACTORS()."""
+    kinds = [dict(match="w1 w2", ranker=("expr", f)) for f in EXPR_FORMULAS]
+    kinds += [
+        dict(match="w1 w2 w1", ranker=("expr", EXPR_EVERY)),
+        dict(match='"w1 w2" w3', ranker=("expr", EXPR_EVERY)),
+        dict(match="w1 | w3", ranker=("expr", EXPR_EVERY)),
+        dict(match="w1 w2", ranker="sph04"),
+        dict(match="@title w1", ranker="sph04"),
+        dict(match="w1 w2", select=PF_SELECT),
+        dict(match="w1 w2 w1", select=PF_SELECT),
+        dict(match='"w1 w2" w3', select=["id", "PACKEDFACTORS({json=1})"]),
+    ]
+    return [SearchQuery(limit=20, **kw) for kw in kinds]
+
+
+WIDE_FIELDS = [f"f{i}" for i in range(40)]
+WIDE_DOCS = 2000
+
+
+def wide_field_index():
+    """40 full-text fields (two fieldmask words: the builder keeps every
+    term raw), each holding 0-3 of 12 words in 30% of the documents, and a
+    uint ``g``."""
+    from manticoresearch_tpu_torch.index.builder import IndexBuilder
+    from manticoresearch_tpu_torch.schema import AttrDef, AttrType, Schema
+    rng = np.random.RandomState(37)
+    words = [f"w{i}" for i in range(12)]
+    docs = []
+    for i in range(1, WIDE_DOCS + 1):
+        d = dict(id=i, g=i % 7)
+        for f in WIDE_FIELDS:
+            d[f] = (" ".join(rng.choice(words, rng.randint(0, 4)))
+                    if rng.rand() < 0.3 else "")
+        docs.append(d)
+    b = IndexBuilder(Schema(fields=WIDE_FIELDS,
+                            attrs=[AttrDef("g", AttrType.UINT)]))
+    b.add_documents(docs)
+    return b.build()
+
+
+def wide_field_queries() -> list[SearchQuery]:
+    kinds = [
+        dict(match="w1", ranker="fieldmask"),
+        dict(match="w1 | w3", ranker="fieldmask"),
+        dict(match="@f35 w1"), dict(match="@(f1,f35) w2 | w3"),
+        dict(match="@f39 w1", ranker="sph04"),
+        dict(match="w1 w2", ranker="sph04"),
+        dict(match="w1 w2", ranker=("expr",
+                                    "field_mask + sum(lcs*user_weight)")),
+        dict(match="w2", select=PF_SELECT),
+        dict(match="w1", group_by="g", select=["count(*)", "sum(g)"]),
+    ]
+    return [SearchQuery(limit=20, **kw) for kw in kinds]
+
+
 def host_top10(idx: SearchIndex, term: str) -> list[tuple[int, int]]:
     """Host numpy model of the reference scoring for one term (the model
     of bench.parity_recall_at_10): bm25part = trunc((idf*tfq + 0.5)*1000),
@@ -808,25 +921,28 @@ def recall_at_10(name: str, idx: SearchIndex, queries: list,
         raise AssertionError(f"{name}: recall@10 {recall} != 1.0")
 
 
-def time_batch(name: str, idx: SearchIndex, queries: list,
-               runs: int) -> dict:
-    """Warm walls of one batch, then one warm run under the profiler."""
+def time_batch(name: str, idx: SearchIndex, queries: list, runs: int,
+               profiled: list | None = None) -> dict:
+    """Warm walls of one batch, then one warm run under the profiler (of
+    ``profiled``, a slice of the batch, where the whole batch would make
+    too many events to read back in time)."""
     warm = []
     for _ in range(runs):
         t0 = time.perf_counter()
         idx.search_batch(queries)
         torch.cuda.synchronize()
         warm.append(round((time.perf_counter() - t0) * 1e3, 2))
-    prof = profile_batch(idx, queries)
+    profiled = profiled or queries
+    prof = profile_batch(idx, profiled)
     print(f"{name}: batch of {len(queries)} on cuda, warm runs (ms) {warm}")
-    print(f"{name}: one warm batch under the profiler: wall "
+    print(f"{name}: one warm batch of {len(profiled)} under the profiler: wall "
           f"{prof['wall_ms']:.2f} ms, device time {prof['device_ms']:.3f} ms "
           f"(busy share {prof['busy']:.3f}), {prof['launches']} kernel "
           f"launches, K1 {prof['k1_ms'] * 1e3:.2f} us in "
           f"{prof['k1_events']} events")
     print(f"{name}: top device ops (name, count, ms): {prof['top']}")
     print(f"{name}: host waits and copies: {prof['waits']}")
-    return dict(warm_ms=warm, **prof)
+    return dict(warm_ms=warm, n_profiled=len(profiled), **prof)
 
 
 def compare_sparse_dense(name: str, idx: SearchIndex, queries: list,
@@ -909,6 +1025,55 @@ def config4_phase(tag: str, gpu: SearchIndex, cpu: SearchIndex,
                              want_seg=float_aggregates(gpu, qs))
         check_equal(path, qs, res, cpu.search_batch(qs))
         time_batch(path, gpu, qs, runs)
+
+
+def expr_phase(tag: str, gpu: SearchIndex, cpu: SearchIndex, base: list,
+               batches: dict, launches_by_path: dict, runs: int) -> int:
+    """The expression-ranker batches on one corpus: every plan dense with
+    the expr ranker, K1 on each batch's work list, one counted
+    ``search_batch`` with exactly one K1 launch (and, for PACKEDFACTORS(),
+    segment-sum launches for the factor scatters), results and factor
+    strings equal to the CPU port, the formula batch against the default
+    ranker, launches per query. Returns the K1 max abs error."""
+    data = gpu.device.data_pytree()
+    max_err = 0
+    for name, qs in batches.items():
+        path = f"{tag} {name}"
+        cqs = [gpu.plan(q) for q in qs]
+        dense = sum(not cq.sig.sparse for cq in cqs)
+        print(f"{path}: {dense} of {len(cqs)} plans dense; rankers "
+              f"{dict(Counter(cq.sig.ranker for cq in cqs))}; PACKEDFACTORS "
+              f"plans {sum(cq.sig.emit_factors for cq in cqs)}")
+        if dense != len(cqs) or any(cq.sig.ranker != "expr" for cq in cqs):
+            raise AssertionError(f"{path}: a plan is sparse or not expr")
+        if not reads_packed(gpu, qs):
+            raise AssertionError(f"{path}: no packed window on the path")
+        max_err = max(max_err, check_batch_lists({path: [
+            w for cq in cqs
+            for w in packed_windows(cq.sig, cq.slot_pb, data, cq.runtime)]}))
+        res, _ = run_counted(path, gpu, qs, launches_by_path, want_seg=None)
+        if name == "packedfactors" and not SEG_BY_PATH.get(path):
+            raise AssertionError(f"{path}: no segment-sum launch")
+        check_equal(path, qs, res, cpu.search_batch(qs))
+        if name == "packedfactors":
+            blobs = [m.attrs["PACKEDFACTORS()"] for r in res
+                     for m in r.matches]
+            if not blobs or not all(b.startswith("bm25=") for b in blobs):
+                raise AssertionError(f"{path}: a match lacks its factors")
+            print(f"{path}: {len(blobs)} factor strings, e.g. "
+                  f"{blobs[0][:160]}")
+        if name == "expr":
+            ref = gpu.search_batch(base)
+            same = sum([(m.docid, m.weight) for m in a.matches]
+                       == [(m.docid, m.weight) for m in b.matches]
+                       for a, b in zip(res, ref))
+            print(f"{path}: {same} of {len(qs)} top-10 lists (docids and "
+                  "weights) equal the default proximity_bm25 ranker's")
+        t = time_batch(path, gpu, qs, runs,
+                       qs[:8] if name == "packedfactors" else None)
+        print(f"{path}: {t['launches'] / t['n_profiled']:.1f} kernel "
+              "launches per query")
+    return max_err
 
 
 def capture_segment_calls(idx: SearchIndex, queries: list) -> list:
@@ -1178,6 +1343,15 @@ def main() -> int:
     c4 = config4_batches(packed, 21, True)
     config4_phase("200k", gpu, cpu, c4, launches_by_path, 3, dense=True)
     seg_calls_dense = capture_segment_calls(gpu, c4["config4 avg"])
+
+    print(f"{since(t_start)} 200k config 4 done")
+
+    # 15. the expression ranker at 200k: formula, sph04, PACKEDFACTORS()
+    base, ex = expr_batches(packed, 25)
+    max_err = max(max_err, expr_phase("200k", gpu, cpu, base, ex,
+                                      launches_by_path, 2))
+    seg_calls_pf_dense = capture_segment_calls(gpu, ex["packedfactors"])
+    print(f"{since(t_start)} 200k expression ranker done")
     del gpu, cpu, packed, data, batch_items, plans, all_plans
     torch.cuda.empty_cache()
     print(f"{since(t_start)} 200k phases done")
@@ -1277,6 +1451,13 @@ def main() -> int:
     config4_phase(tag, gpu, cpu, c4, launches_by_path, 3, dense=False)
     seg_calls = capture_segment_calls(gpu, c4["config4 avg"])
     print(f"{since(t_start)} {tag} config 4 done")
+
+    # 15 at 1M: the expression ranker's batches, dense plans
+    base, ex = expr_batches(big, 26)
+    max_err = max(max_err, expr_phase(tag, gpu, cpu, base, ex,
+                                      launches_by_path, 2))
+    seg_calls_pf = capture_segment_calls(gpu, ex["packedfactors"])
+    print(f"{since(t_start)} {tag} expression ranker done")
     del gpu, cpu, big, data, big_items
     torch.cuda.empty_cache()
     print(f"{since(t_start)} {tag} filter-first done")
@@ -1311,7 +1492,9 @@ def main() -> int:
     # and 2-word phrases on its bigram_index twin, MT_SPARSE auto and always
     for variant, bigram, qs in (("positional kinds", "",
                                  positional_kind_queries()),
-                                ("bigram phrases", "all", bigram_queries())):
+                                ("bigram phrases", "all", bigram_queries()),
+                                ("expression ranker kinds", "",
+                                 expr_kind_queries())):
         t0 = time.perf_counter()
         small = positional_index(bigram)
         gpu = SearchIndex(small, device="cuda")
@@ -1320,7 +1503,9 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s")
         if not reads_packed(gpu, qs):
             raise AssertionError(f"{variant}: no packed window on the path")
-        for mode in ("auto", "always"):
+        # the expression ranker's plans are dense whatever MT_SPARSE asks
+        expr = variant.startswith("expression")
+        for mode in ("auto",) if expr else ("auto", "always"):
             set_sparse_mode(mode, gpu, cpu)
             cqs = [gpu.plan(q) for q in qs]
             spaces = Counter("sparse" if cq.sig.sparse else "dense"
@@ -1332,11 +1517,17 @@ def main() -> int:
                   f"groups {sum(len(cq.sig.merge_groups) for cq in cqs)}, "
                   f"repeated-keyword plans "
                   f"{sum(bool(cq.sig.has_dupes) for cq in cqs)}")
-            if mode == "always" and not all(cq.sig.sparse for cq in cqs):
+            if expr and not all(cq.sig.ranker == "expr"
+                                and not cq.sig.sparse for cq in cqs):
+                raise AssertionError(f"{variant}: a plan is sparse or not "
+                                     "expr")
+            if (mode == "always" and not expr
+                    and not all(cq.sig.sparse for cq in cqs)):
                 raise AssertionError(f"{variant}: MT_SPARSE=always left a "
                                      "plan dense")
             name = f"{variant} ({mode})"
-            res, _ = run_counted(name, gpu, qs, launches_by_path)
+            res, _ = run_counted(name, gpu, qs, launches_by_path,
+                                 want_seg=None if expr else 0)
             check_equal(name, qs, res, cpu.search_batch(qs))
             print(f"{name}: {sum(r.total_found > 0 for r in res)} of "
                   f"{len(qs)} queries find a document")
@@ -1367,12 +1558,39 @@ def main() -> int:
     del gpu, cpu, small
     print(f"{since(t_start)} group-by kinds done")
 
+    # 17. a 40-field index: two fieldmask words, every term raw
+    t0 = time.perf_counter()
+    small = wide_field_index()
+    gpu = SearchIndex(small, device="cuda")
+    cpu = SearchIndex(small, device="cpu")
+    print(f"40-field index: {small.n_docs} docs built and uploaded in "
+          f"{time.perf_counter() - t0:.1f} s")
+    qs = wide_field_queries()
+    if reads_packed(gpu, qs):
+        raise AssertionError("40-field index: a packed window on the path")
+    cqs = [cq for cq in (program_plan(gpu, q) for q in qs) if cq]
+    if any(cq.sig.sparse for cq in cqs):
+        raise AssertionError("40-field index: a plan is not dense")
+    print(f"40-field index: rankers "
+          f"{dict(Counter(cq.sig.ranker for cq in cqs))}")
+    res, _ = run_counted("40-field index", gpu, qs, launches_by_path,
+                         want_seg=None)
+    check_equal("40-field index", qs, res, cpu.search_batch(qs))
+    time_batch("40-field index", gpu, qs, 3)
+    del gpu, cpu, small
+    print(f"{since(t_start)} 40-field index done")
+
     # 14. the segment-sum kernel: checks, and timing at the config-4 AVG
     # batches' calls (the kernels line takes the 1M batch's)
-    seg_err = check_segment_kernel(seg_calls_dense + seg_calls)
+    seg_err = check_segment_kernel(seg_calls_dense + seg_calls
+                                   + seg_calls_pf_dense + seg_calls_pf)
     time_segment("200k config-4 avg batch (dense, full width)",
                  seg_calls_dense, iters=10)
     seg = time_segment(f"{tag} config-4 avg batch", seg_calls, iters=20)
+    time_segment("200k PACKEDFACTORS() batch (factor scatters)",
+                 seg_calls_pf_dense, iters=5)
+    time_segment(f"{tag} PACKEDFACTORS() batch (factor scatters)",
+                 seg_calls_pf, iters=5)
     print(f"{since(t_start)} segment kernel done")
 
     launches = sum(launches_by_path.values())

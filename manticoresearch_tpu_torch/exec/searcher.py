@@ -11,16 +11,17 @@ Every MATCH shape of the JAX package runs: the boolean operators, the
 positional operators (phrase, proximity, NEAR / NOTNEAR, SENTENCE,
 PARAGRAPH, bigram), field, position and zone limits (ZONESPAN included),
 wildcard merge groups and repeated keywords, under the rankers
-proximity_bm25, bm25, proximity, wordcount, matchany, none and fieldmask,
-in the dense, sparse-union and filter-first row spaces; so do GROUP BY on
-the device, the JAX package's host routes (GROUP BY a JSON path, an MVA or
-a bigint, GROUP N BY, a string WITHIN GROUP ORDER BY, and any group-by
-expression that only the host evaluates), late filters (expressions, and
-MVA values past 32 bits) and ORDER BY a JSON path. Not in the port yet,
-each raising ``NotImplementedError``: ``ranker=expr`` / ``sph04`` and
-``PACKEDFACTORS()``, and indexes of more than 32 full-text fields
-(``ops.search.check_in_slice``). A filter on a JSON path goes to the
-planner, which evaluates it on the host into a row bitmask.
+proximity_bm25, bm25, proximity, wordcount, matchany, none, fieldmask,
+sph04 and the expression ranker (``ranker=expr('...')``, and
+``PACKEDFACTORS()`` in the select list), in the dense, sparse-union and
+filter-first row spaces, on indexes of any number of full-text fields; so
+do GROUP BY on the device, the JAX package's host routes (GROUP BY a JSON
+path, an MVA or a bigint, GROUP N BY, a string WITHIN GROUP ORDER BY, and
+any group-by expression that only the host evaluates), late filters
+(expressions, and MVA values past 32 bits) and ORDER BY a JSON path. A
+filter on a JSON path goes to the planner, which evaluates it on the host
+into a row bitmask. ``search_batch`` gives every query ``search``'s
+result, PACKEDFACTORS() included (the JAX package's batch leaves it out).
 
 Each query runs as a generator (``_steps``) that yields the device work it
 needs, a ranked plan or a group-by plan, and receives its outputs; host
@@ -48,7 +49,8 @@ from ..ops.groupby import (AggSpec, GroupSpec, build_groupby,
                            pack_groupby_output, probe_groupby,
                            unpack_groupby_row)
 from ..ops.packed_store import decode_grouped
-from ..ops.search import INT32_MIN, build_kernel, pack_output, packed_windows
+from ..ops.search import (INT32_MIN, build_kernel, pack_output,
+                          packed_windows, unpack_factors)
 from ..query.explain import render_plan
 from ..query.expr import ExprError, eval_expr_host, infer_is_float, parse_expr
 from ..query.ftparser import FtQueryParser
@@ -136,18 +138,92 @@ def _wants_packedfactors(select) -> bool:
                for s in (select or []))
 
 
-def _check_query_in_slice(q: SearchQuery, schema) -> None:
-    """Refuse, before planning, what the port does not run: ranker=expr
-    (and sph04, and PACKEDFACTORS() which forces it), for the port's
-    planner has no expression ranker. The plan shapes the search program
-    does not run raise from ``ops.search.check_in_slice``."""
-    def no(feature: str):
-        raise NotImplementedError(f"{feature} is not ported to the PyTorch "
-                                  "search path yet")
-    if isinstance(q.ranker, tuple) or q.ranker in ("expr", "sph04"):
-        no(f"ranker={q.ranker if isinstance(q.ranker, str) else 'expr'}")
-    if _wants_packedfactors(q.select):
-        no("PACKEDFACTORS()")
+def _render_packed_factors(pf: dict, j: int, fields, slot_terms,
+                           runtime, as_json: bool = False) -> str:
+    """Text form of the factor blob (PACKEDFACTORS() / the SPH_UDF_FACTORS
+    layout rendered like the reference's ToString path): doc-level factors,
+    then per-field blocks for matched fields, then per-word tf/idf."""
+    def _f(v):
+        # PrintVarFloat (sphinxutils.cpp:2377): "%f" (6 decimals) when it
+        # round-trips to the same float32, else "%1.8f"
+        f32 = np.float32(v)
+        s2 = f"{float(f32):.6f}"
+        if np.float32(float(s2)) == f32:
+            return s2
+        return f"{float(f32):.8f}"
+
+    if as_json:
+        fields_out = []
+        for f, fname in enumerate(fields):
+            if not int(pf["pf_hit_count"][j, f]):
+                continue
+            fields_out.append(
+                f'{{"field":{f}, "lcs":{int(pf["pf_lcs"][j, f])}, '
+                f'"hit_count":{int(pf["pf_hit_count"][j, f])}, '
+                f'"word_count":{int(pf["pf_word_count"][j, f])}, '
+                f'"tf_idf":{_f(pf["pf_tf_idf"][j, f])}, '
+                f'"min_idf":{_f(pf["pf_min_idf"][j, f])}, '
+                f'"max_idf":{_f(pf["pf_max_idf"][j, f])}, '
+                f'"sum_idf":{_f(pf["pf_sum_idf"][j, f])}, '
+                f'"min_hit_pos":{int(pf["pf_min_hit_pos"][j, f])}, '
+                f'"min_best_span_pos":'
+                f'{int(pf["pf_min_best_span_pos"][j, f])}, '
+                f'"exact_hit":{int(pf["pf_exact_hit"][j, f])}, '
+                f'"max_window_hits":'
+                f'{int(pf["pf_max_window_hits"][j, f])}, '
+                f'"min_gaps":{int(pf["pf_min_gaps"][j, f])}, '
+                f'"exact_order":{int(pf["pf_exact_order"][j, f])}, '
+                f'"lccs":{int(pf["pf_lccs"][j, f])}, '
+                f'"wlccs":{_f(pf["pf_wlccs"][j, f])}, '
+                f'"atc":{_f(pf["pf_atc"][j, f])}}}')
+        idf = np.asarray(runtime["idf"])
+        words_out = []
+        for s, term in enumerate(slot_terms):
+            tf = int(pf["pf_word_tf"][j, s])
+            if tf:
+                words_out.append(f'{{"tf":{tf}, "idf":{_f(idf[s])}}}')
+        return (f'{{"bm25":{int(pf["pf_bm25"][j])}, '
+                f'"bm25a":{_f(pf["pf_bm25a"][j])}, '
+                f'"field_mask":{int(pf["pf_field_mask"][j])}, '
+                f'"doc_word_count":{int(pf["pf_doc_word_count"][j])}, '
+                f'"fields":[{", ".join(fields_out)}], '
+                f'"words":[{", ".join(words_out)}]}}')
+    parts = [
+        f"bm25={int(pf['pf_bm25'][j])}, "
+        f"bm25a={_f(pf['pf_bm25a'][j])}, "
+        f"field_mask={int(pf['pf_field_mask'][j])}, "
+        f"doc_word_count={int(pf['pf_doc_word_count'][j])}",
+    ]
+    for f, fname in enumerate(fields):
+        if not int(pf["pf_hit_count"][j, f]):
+            continue
+        parts.append(
+            f"field{f}=(lcs={int(pf['pf_lcs'][j, f])}, "
+            f"hit_count={int(pf['pf_hit_count'][j, f])}, "
+            f"word_count={int(pf['pf_word_count'][j, f])}, "
+            f"tf_idf={_f(pf['pf_tf_idf'][j, f])}, "
+            f"min_idf={_f(pf['pf_min_idf'][j, f])}, "
+            f"max_idf={_f(pf['pf_max_idf'][j, f])}, "
+            f"sum_idf={_f(pf['pf_sum_idf'][j, f])}, "
+            f"min_hit_pos={int(pf['pf_min_hit_pos'][j, f])}, "
+            f"min_best_span_pos={int(pf['pf_min_best_span_pos'][j, f])}, "
+            f"exact_hit={int(pf['pf_exact_hit'][j, f])}, "
+            f"max_window_hits={int(pf['pf_max_window_hits'][j, f])}, "
+            f"min_gaps={int(pf['pf_min_gaps'][j, f])}, "
+            f"exact_order={int(pf['pf_exact_order'][j, f])}, "
+            f"lccs={int(pf['pf_lccs'][j, f])}, "
+            f"wlccs={_f(pf['pf_wlccs'][j, f])}, "
+            f"atc={_f(pf['pf_atc'][j, f])})")
+    idf = np.asarray(runtime["idf"])
+    qpos_r = np.asarray(runtime.get("qpos", np.arange(1, len(slot_terms) + 1)))
+    for s, term in enumerate(slot_terms):
+        tf = int(pf["pf_word_tf"][j, s])
+        if tf:
+            # word index = query position - 1 (PackFactors iterates
+            # qpos entries; dupes leave gaps: word0..word2, word4, word6)
+            wi = int(qpos_r[s]) - 1 if s < len(qpos_r) else s
+            parts.append(f"word{wi}=(tf={tf}, idf={_f(idf[s])})")
+    return ", ".join(parts)
 
 
 def _resolve_order(q: SearchQuery, schema) -> tuple:
@@ -225,11 +301,11 @@ class SearchIndex:
 
     # ------------------------------------------------------------------
     def plan(self, q: SearchQuery) -> CompiledQuery:
-        _check_query_in_slice(q, self.schema)
+        emit_factors = _wants_packedfactors(q.select)
         key = (
             q.match, q.ranker, q.max_matches, q.offset + q.limit,
             tuple(q.sort or ()), q.idf_plain, q.tfidf_normalized,
-            q.expansion_limit, q.boolean_simplify, q.expand_keywords,
+            emit_factors, q.expansion_limit, q.boolean_simplify, q.expand_keywords,
             q.collation, q.not_only_allowed,
             tuple(sorted(q.field_weights.items())),
             tuple((f.attr, f.kind, tuple(f.values), f.lo, f.hi, f.exclude,
@@ -248,7 +324,7 @@ class SearchIndex:
             order=_resolve_order(q, self.schema),
             field_weights=q.field_weights,
             idf_plain=q.idf_plain, tfidf_normalized=q.tfidf_normalized,
-            expansion_limit=q.expansion_limit,
+            emit_factors=emit_factors, expansion_limit=q.expansion_limit,
             packed_store=self.packed.packed_store(),
             boolean_simplify=q.boolean_simplify,
             expand_keywords=q.expand_keywords,
@@ -263,7 +339,6 @@ class SearchIndex:
         self._plan_cache[key] = value
 
     def search(self, q: SearchQuery) -> SearchResult:
-        _check_query_in_slice(q, self.schema)
         return self._drive([q])[0]
 
     def search_batch(self, queries: list[SearchQuery]) -> list[SearchResult]:
@@ -272,8 +347,6 @@ class SearchIndex:
         the card, whatever the plan shapes and however many are grouped),
         then the plans grouped by shape run group by group; every output
         row goes into one tensor, fetched to the host once."""
-        for q in queries:
-            _check_query_in_slice(q, self.schema)
         return self._drive(queries)
 
     # ------------------------------------------------------------------
@@ -304,8 +377,8 @@ class SearchIndex:
 
     def _run_round(self, reqs: list[tuple]) -> list:
         """Run one round of device work: ("rank", cq) -> (rowids, weights,
-        found, seconds); ("group", cq, gspec) -> the group-by outputs as
-        numpy."""
+        found, seconds, PACKEDFACTORS() arrays or None); ("group", cq,
+        gspec) -> the group-by outputs as numpy."""
         t0 = time.perf_counter()
         n_docs = self.packed.n_docs
         n_fields = max(self.schema.n_fields, 1)
@@ -348,7 +421,11 @@ class SearchIndex:
                 row = block[bi]
                 if key[0] == "rank":
                     k = key[1].k
-                    replies[j] = (row[:k], row[k:2 * k], int(row[2 * k]), dt)
+                    pf = (unpack_factors(row[2 * k + 1:], k, n_fields,
+                                         key[1].n_slots)
+                          if row.shape[0] > 2 * k + 1 else None)
+                    replies[j] = (row[:k], row[k:2 * k], int(row[2 * k]), dt,
+                                  pf)
                 else:
                     replies[j] = unpack_groupby_row(row, key[2])
         return replies
@@ -407,9 +484,9 @@ class SearchIndex:
         except (ValueError, NotImplementedError) as e:
             return SearchResult([], 0, 0, 0.0, [], error=str(e))
         t_plan = time.perf_counter() - t0
-        rowids, weights, found, t_dev = yield ("rank", cq)
+        rowids, weights, found, t_dev, pf = yield ("rank", cq)
         t2 = time.perf_counter()
-        res = self._finish(q, cq, rowids, weights, found, t0)
+        res = self._finish(q, cq, rowids, weights, found, t0, pf)
         res.profile = [("parse_and_plan", t_plan),
                        ("device_exec_fetch", t_dev),
                        ("finalize", time.perf_counter() - t2)]
@@ -679,22 +756,33 @@ class SearchIndex:
 
     def _finish(self, q: SearchQuery, cq: CompiledQuery,
                 rowids: np.ndarray, weights: np.ndarray, found: int,
-                t0: float) -> SearchResult:
+                t0: float, pf: dict | None = None) -> SearchResult:
         if q.cutoff:
             found = min(found, q.cutoff)
         n_avail = min(found, cq.sig.k)
+        sel = np.arange(n_avail)
         rowids = rowids[:n_avail]
         weights = weights[:n_avail]
         if cq.sig.order[0] == "rel":
             keep = weights != INT32_MIN
-            rowids, weights = rowids[keep], weights[keep]
+            rowids, weights, sel = rowids[keep], weights[keep], sel[keep]
         lo = min(q.offset, len(rowids))
         hi = min(q.offset + q.limit, len(rowids))
-        rowids, weights = rowids[lo:hi], weights[lo:hi]
+        rowids, weights, sel = rowids[lo:hi], weights[lo:hi], sel[lo:hi]
 
         matches = self._hydrate(rowids, weights, q.select)
         for m, r in zip(matches, rowids.tolist()):
             m._rowid = int(r)   # physical row within this index
+        if pf is not None:
+            pf_keys = [s2 for s2 in (q.select or [])
+                       if s2.lower().replace(" ", "").startswith(
+                           "packedfactors(")]
+            for m, j in zip(matches, sel.tolist()):
+                for pk in (pf_keys or ["packedfactors()"]):
+                    as_json = "json=1" in pk.lower().replace(" ", "")
+                    m.attrs[pk] = _render_packed_factors(
+                        pf, j, self.schema.fields, cq.slot_terms,
+                        cq.runtime, as_json=as_json)
         dt = (time.perf_counter() - t0) * 1000.0
         stats = [WordStat(t, d, h) for t, d, h in cq.stat_list]
         res = SearchResult(matches, min(found, q.max_matches), found, dt,

@@ -205,7 +205,7 @@ def build_groupby(sig: PlanSig, gspec: GroupSpec, n_rows: int, n_fields: int,
     k = gspec.k
 
     def fn(data, rt, decoded):
-        eligible, weight, rows, at_rows = core(data, rt, decoded)
+        eligible, weight, rows, at_rows, _ = core(data, rt, decoded)
         dev = rows.device
         attrs = AttrView(data["attrs"], at_rows, dev)
 

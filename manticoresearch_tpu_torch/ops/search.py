@@ -17,10 +17,11 @@ their hits (and the ZONESPAN joint constraint), wildcard merge groups,
 the positional nodes (phrase, proximity, NEAR, SENTENCE, PARAGRAPH,
 bigram) and the gated tfidf of phrase members; the LCS rankers then rank
 the merged hit stream of terms and phrase emissions, with the
-HANDLE_DUPES state machine for repeated keywords. The plan shapes still
-outside the port (``ranker=expr``, PACKEDFACTORS, more than 32 fields)
-raise ``NotImplementedError`` naming the feature (see ``check_in_slice``);
-nothing falls back to other code.
+HANDLE_DUPES state machine for repeated keywords; the expression ranker
+(``ranker=expr``, sph04 and PACKEDFACTORS()) evaluates its factors over
+the same stream (``ops.factors``). Indexes of more than 32 full-text
+fields carry [.., FW] fieldmask words, FW = (fields + 31) >> 5; the
+planner keeps them dense.
 
 The program reads each packed term slot's rowid, tf and fieldmask planes
 decoded. ``packed_windows`` lists the packed windows a query's program
@@ -66,8 +67,6 @@ K1 = float(np.float32(1.2))   # BM25 k1, exact as a float32
 
 _PHRASE_OPS = ("phrase", "proximity", "near", "sentence", "paragraph",
                "bigram_phrase")
-_RANKERS = ("proximity_bm25", "proximity", "ws_bm25", "ws", "none",
-            "fieldmask", "wordcount", "matchany")
 
 
 def _bit(s: int) -> int:
@@ -79,19 +78,6 @@ def _i32(v: int) -> int:
     """A Python int's low 32 bits as a signed int32 value."""
     v &= 0xFFFFFFFF
     return v - 2**32 if v >= 2**31 else v
-
-
-def check_in_slice(sig: PlanSig, n_fields: int) -> None:
-    """Raise NotImplementedError for a plan shape the port does not run."""
-    def no(feature: str):
-        raise NotImplementedError(f"{feature} is not ported to the PyTorch "
-                                  "search path yet")
-    if sig.emit_factors:
-        no("PACKEDFACTORS() (emit_factors)")
-    if sig.ranker not in _RANKERS:
-        no(f"ranker={sig.ranker}")
-    if (n_fields + 31) >> 5 > 1:
-        no("indexes with more than 32 full-text fields")
 
 
 # --------------------------------------------------------------------------
@@ -566,9 +552,11 @@ def packed_windows(sig: PlanSig, slot_pb: tuple, data: dict,
 def build_match_core(sig: PlanSig, n_rows: int, n_fields: int,
                      slot_pb: tuple, slot_hb: tuple, n_hit_iters: int = 0):
     """(data, rt, decoded) -> (eligible bool[Z], weight i32[Z], rows
-    i32[Z], at_rows), Z = N+1 (dense) or B (sparse, filter-first);
-    ``at_rows(v)`` takes a per-row tensor (its pad row optional) to
-    ``rows``.
+    i32[Z], at_rows, factors), Z = N+1 (dense) or B (sparse,
+    filter-first); ``at_rows(v)`` takes a per-row tensor (its pad row
+    optional) to ``rows``; ``factors`` holds the PACKEDFACTORS() arrays
+    per position (``factors.PF_LAYOUT``) when the plan emits them, else
+    nothing.
 
     ``data`` is ``DeviceIndex.data_pytree()``; ``rt`` is the planner's
     runtime dict of numpy arrays (slot windows are read on the host);
@@ -577,11 +565,13 @@ def build_match_core(sig: PlanSig, n_rows: int, n_fields: int,
     planner's per-slot posting / hit window sizes; ``n_hit_iters`` bounds
     the binary searches over zone spans, sentence and paragraph breaks and
     MVA values."""
-    check_in_slice(sig, n_fields)
     N = n_rows
     F = n_fields
     S = sig.n_slots
     W = max(1, (S + 31) // 32)
+    # fieldmask words per posting: more than 32 fields take several
+    # (FieldMask_t is 256-bit in the reference, sphinx.h:108)
+    FWID = (n_fields + 31) >> 5
     scan_index = sig.scan_index
     if sig.sparse:
         size = sig.scan_bucket if scan_index else int(sum(slot_pb))
@@ -718,7 +708,15 @@ def build_match_core(sig: PlanSig, n_rows: int, n_fields: int,
                         msk, contribution(s, slot_tfq(s)), 0.0))
                 termmask[:, s >> 5].index_add_(
                     0, idx, msk.to(torch.int32) * _bit(s))
-                if need_fieldmask and s in pos_slots:
+                if need_fieldmask and s in pos_slots and FWID > 1:
+                    # [P, FW] mask words (dense only: the planner keeps
+                    # such indexes dense); one posting per doc and slot,
+                    # so the add is an OR
+                    fm = torch.where(msk[:, None], slot_fieldmask(s), 0)
+                    fh_s = torch.zeros((size, FWID), dtype=torch.int32,
+                                       device=dev).index_add_(0, idx, fm)
+                    fieldhit |= (fh_s[:, fshift >> 5] >> (fshift & 31)) & 1
+                elif need_fieldmask and s in pos_slots:
                     fm = torch.where(msk, slot_fieldmask(s), 0)
                     fh_s = torch.zeros(size, dtype=torch.int32,
                                        device=dev).index_add_(0, idx, fm)
@@ -743,8 +741,15 @@ def build_match_core(sig: PlanSig, n_rows: int, n_fields: int,
         for s, lmask, f_start, f_end, zlim, maxpos in sig.slot_limited:
             hrowL, hpkL, mskL = slot_hits(s)
             hfield = (hpkL >> 24) & 0xFF
-            ok = mskL & (((torch.ones_like(hfield) << hfield)
-                          & _i32(lmask)) != 0)
+            if FWID > 1:
+                # the field-limit mask as FW int32 words
+                lmpl = torch.tensor([_i32(int(lmask) >> (32 * w))
+                                     for w in range(FWID)],
+                                    dtype=torch.int32, device=dev)
+                ok = mskL & (((lmpl[hfield >> 5] >> (hfield & 31)) & 1) != 0)
+            else:
+                ok = mskL & (((torch.ones_like(hfield) << hfield)
+                              & _i32(lmask)) != 0)
             if maxpos:
                 ok = ok & ((hpkL & HITMAN_POS_MASK) <= maxpos)
             if zlim:
@@ -891,24 +896,29 @@ def build_match_core(sig: PlanSig, n_rows: int, n_fields: int,
         bm25part = torch.trunc((tfidf + 0.5) * SPH_BM25_SCALE).to(torch.int32)
         fw = torch.from_numpy(
             np.asarray(rt["field_weights"], np.int64)).to(dev)
+        factors: dict = {}
         if use_lcs:
             stream = _hit_stream(sig, rt, match, termmask, phrase_results,
                                  lim_hit_ok, rk_slots, rk_phrases, slot_hits,
                                  to_idx, size, N)
-            weight = _rank_hit_stream(sig, stream, bm25part, fw, to_idx,
-                                      size, N, F, S)
+            expr_in = ((rt, data["field_lens"], termmask)
+                       if sig.ranker == "expr" else None)
+            weight, factors = _rank_hit_stream(sig, stream, bm25part, fw,
+                                               to_idx, size, N, F, S,
+                                               expr_in)
         elif sig.ranker in ("ws_bm25", "ws"):
             rank = wrap_i32((fieldhit.to(torch.int64) * fw).sum(dim=1))
             weight = (bm25part + rank * SPH_BM25_SCALE
                       if sig.ranker == "ws_bm25" else rank)
         elif sig.ranker == "none":
             weight = torch.ones(size, dtype=torch.int32, device=dev)
-        else:   # fieldmask: the matched-field bitmask itself (a DWORD)
-            pw = torch.tensor([1 << f for f in range(F)], dtype=torch.int64,
-                              device=dev)
+        else:   # fieldmask: the matched-field bitmask itself (a DWORD:
+            #     fields past 31 drop out, as in the reference)
+            pw = torch.tensor([1 << f if f < 32 else 0 for f in range(F)],
+                              dtype=torch.int64, device=dev)
             weight = wrap_i32((fieldhit.to(torch.int64) * pw).sum(dim=1))
 
-        return eligible, weight, rows_vec, at_rows
+        return eligible, weight, rows_vec, at_rows, factors
 
     return fn
 
@@ -916,13 +926,16 @@ def build_match_core(sig: PlanSig, n_rows: int, n_fields: int,
 def _hit_stream(sig, rt, match, termmask, phrase_results, lim_hit_ok,
                 rk_slots, rk_phrases, slot_hits, to_idx, size, N):
     """The LCS rankers' merged hit stream, unsorted: -> (row, key, qpos,
-    weight, span) int32 per entry, or None when empty. Term hits of the
+    weight, span, slot) int32 per entry, or None when empty; slot (the
+    term's slot, a phrase emission's first member) only for the
+    expression ranker, whose factors read it, else None. Term hits of the
     ranker slots (once per query occurrence of a repeated keyword, only
     qualifying hits of a limited slot) and the phrase nodes' emissions at
     their anchors. A term's or node's hits reach the ranker only where
     every enclosing AND/ANDNOT/MAYBE-right/QUORUM subtree matched the doc.
     A masked entry has row N and key 0; a masked term entry has qpos 0,
     a masked phrase emission keeps its first member's qpos."""
+    with_slot = sig.ranker == "expr"
     qpos = rt["qpos"]
     gate_cache: dict = {repr(sig.expr): match}
     slot_paths: dict[int, list] = {}
@@ -989,7 +1002,8 @@ def _hit_stream(sig, rt, match, termmask, phrase_results, lim_hit_ok,
                 and len(sig.slot_occs[s]) > 1 else (int(qpos[s]),))
         for qp in occs:
             parts.append((hrow, hpk, m32 * int(qp), m32,
-                          torch.ones_like(hrow)))
+                          torch.ones_like(hrow))
+                         + ((torch.full_like(hrow, s),) if with_slot else ()))
     for node in rk_phrases:
         _, _, a_row, a_key, a_ok, a_w = phrase_results[node]
         g = gate_of(node_paths.get(node, []))
@@ -1003,44 +1017,56 @@ def _hit_stream(sig, rt, match, termmask, phrase_results, lim_hit_ok,
                       torch.where(a_ok, a_key, 0),
                       torch.full_like(a_row, int(qpos[node[1][0]])),
                       torch.where(a_ok, w, 0),
-                      torch.full_like(a_row, n_words)))
+                      torch.full_like(a_row, n_words))
+                     + ((torch.full_like(a_row, node[1][0]),) if with_slot
+                        else ()))
     if not parts:
         return None
-    return tuple(torch.cat(col) for col in zip(*parts))
+    cols = tuple(torch.cat(col) for col in zip(*parts))
+    return cols if with_slot else cols + (None,)
 
 
-def _rank_hit_stream(sig, stream, bm25part, fw, to_idx, size, N, F, S):
-    """proximity_bm25 / proximity / wordcount / matchany over the merged
-    hit stream (RankerState_Proximity_fn, _Wordcount_fn, _MatchAny_fn).
-    Hit rows reach the program's row space through ``to_idx``; position
-    size - 1 is the scatter sink, and every value sent there by a masked
-    entry is neutral (0 for adds and maxes, M for the min)."""
+def _rank_hit_stream(sig, stream, bm25part, fw, to_idx, size, N, F, S,
+                     expr_in=None):
+    """proximity_bm25 / proximity / wordcount / matchany / expr over the
+    merged hit stream (RankerState_Proximity_fn, _Wordcount_fn,
+    _MatchAny_fn, _Expr_fn): -> (weight, factors). Hit rows reach the
+    program's row space through ``to_idx``; position size - 1 is the
+    scatter sink, and every value sent there by a masked entry is neutral
+    (0 for adds and maxes, M for the min). ``expr_in`` = (rt, field_lens,
+    termmask) for the expression ranker, whose ``factors`` are the
+    PACKEDFACTORS() arrays when the plan emits them."""
     dev = bm25part.device
     if stream is None:
         return (bm25part if sig.ranker == "proximity_bm25"
-                else torch.zeros(size, dtype=torch.int32, device=dev))
-    hrow, hpk, hqp, hw, hsp = stream
+                else torch.zeros(size, dtype=torch.int32, device=dev)), {}
+    hrow, hpk, hqp, hw, hsp, hslot = stream
     if sig.ranker == "wordcount":
         # the field weight of every stream hit, summed per doc
         wf = torch.where(hrow < N,
                          fw[((hpk >> 24) & 0xFF).clamp(max=F - 1)], 0)
         return wrap_i32(torch.zeros(size, dtype=torch.int64,
                                     device=dev).index_add_(0, to_idx(hrow),
-                                                           wf))
+                                                           wf)), {}
+    newpos = None
     if sig.has_dupes or sig.slot_occs:
-        hrow, hpk, hqp, curlcs = _dupes_curlcs(hrow, hpk, hqp, hw, to_idx,
-                                               size, N)
+        hrow, hpk, hqp, hslot, curlcs, newpos = _dupes_curlcs(
+            hrow, hpk, hqp, hw, hslot, to_idx, size, N)
     else:
         # lax.sort((hrow, hpk, payload), num_keys=2) on signed int32 keys;
-        # the payload packs qpos, weight and span
+        # the payload packs qpos, weight, span and (expr) slot
         payload = (hqp.clamp(0, 255) | (hw.clamp(0, 255) << 8)
                    | (hsp.clamp(0, 255) << 16))
+        if hslot is not None:
+            payload = payload | (hslot << 24)
         key = (hrow.to(torch.int64) << 32) + (hpk.to(torch.int64) + 2**31)
         order = torch.sort(key, stable=True).indices
         hrow, hpk, payload = hrow[order], hpk[order], payload[order]
         hqp = payload & 0xFF
         hw = (payload >> 8) & 0xFF
         hsp = (payload >> 16) & 0xFF
+        if hslot is not None:
+            hslot = (payload >> 24) & 0xFF
         delta = hpk - hqp
         linked = ((hrow == _prev(hrow, -1)) & (hpk > _prev(hpk, 0))
                   & (delta == _prev(delta, 0) + _prev(hsp, 0) - 1))
@@ -1071,10 +1097,43 @@ def _rank_hit_stream(sig, stream, bm25part, fw, to_idx, size, N, F, S):
         return wrap_i32(torch.where(
             match_cnt > 0,
             (match_cnt + (lcs.to(torch.int64) - 1) * phrase_k) * fw,
-            0).sum(dim=1))
+            0).sum(dim=1)), {}
+    if sig.ranker == "expr":
+        return _expr_rank(sig, expr_in, (hrow, hpk, hqp, hslot), newpos,
+                          lcs, bm25part, N, F, S)
     rank = wrap_i32((lcs.to(torch.int64) * fw).sum(dim=1))
     return (bm25part + rank * SPH_BM25_SCALE
-            if sig.ranker == "proximity_bm25" else rank)
+            if sig.ranker == "proximity_bm25" else rank), {}
+
+
+def _expr_rank(sig, expr_in, sorted_stream, newpos, lcs, bm25part, N, F,
+               S):
+    """ranker=expr('formula') (RankerState_Expr_fn, sphinxsearch.cpp:1964)
+    over the sorted stream: weight = (int) formula, and the PACKEDFACTORS()
+    arrays when the plan emits them. Dense rows only (the planner runs no
+    expression ranker in a sparse space). The factor accounting of a
+    dupes query counts each physical (row, pos) ONCE, folded to the first
+    instance's qpos and slot (m_dTermsHit / m_dTermDupes,
+    sphinxsearch.cpp:3446-3455); the raw stream keeps every emission."""
+    from .factors import (FactorContext, expr_weight, factor_inputs,
+                          packed_factors)
+    rt, field_lens, termmask = expr_in
+    hrow, hpk, hqp, hslot = sorted_stream
+    valid = hrow < N
+    fin = factor_inputs(rt, hrow.device)
+    raw = (hrow, hpk, hqp, hslot, valid)
+    stream = raw
+    if newpos is not None:
+        sl = hslot.clamp(0, max(S - 1, 0)).to(torch.int64)
+        stream = (hrow, hpk, fin["qpos_fold"][sl], fin["slot_fold"][sl],
+                  valid & newpos)
+    ctx = FactorContext(N=N, F=F, S=S, stream=stream, raw_stream=raw,
+                        max_qpos=sig.max_qpos, lcs=lcs, bm25part=bm25part,
+                        termmask=termmask, rt=fin, field_lens=field_lens,
+                        fl_on=sig.fl_on)
+    weight = expr_weight(sig.ranker_expr, ctx)
+    return weight, (packed_factors(ctx, bm25part, lcs)
+                    if sig.emit_factors else {})
 
 
 def _prev(x: torch.Tensor, fill: int) -> torch.Tensor:
@@ -1099,7 +1158,7 @@ def _stable_order(*keys: torch.Tensor) -> torch.Tensor:
     return order
 
 
-def _dupes_curlcs(hrow, hpk, hqp, hw, to_idx, size, N):
+def _dupes_curlcs(hrow, hpk, hqp, hw, hslot, to_idx, size, N):
     """HANDLE_DUPES proximity state machine (RankerState_Proximity_fn with
     dupes, sphinxsearch.cpp:1369-1414), vectorized as in the JAX package:
     once the first 2-chain forms, the LCS tail only advances on extensions
@@ -1109,7 +1168,8 @@ def _dupes_curlcs(hrow, hpk, hqp, hw, to_idx, size, N):
         32) starts the one growable chain, of constant delta pos - qpos;
      3. the chain grows over same-delta elements while gaps stay < 32;
      4. every other distinct position adds only its hit weight.
-    -> (row, key, qpos, curlcs) in sorted stream order."""
+    -> (row, key, qpos, slot, curlcs, newpos) in sorted stream order,
+    newpos marking each distinct (row, pos)'s first entry."""
     dev = hrow.device
     M = hrow.shape[0]
     sink = size - 1
@@ -1117,6 +1177,8 @@ def _dupes_curlcs(hrow, hpk, hqp, hw, to_idx, size, N):
     # lax.sort((hrow, hpk, payload, slot), num_keys=3)
     order = _stable_order(hrow, hpk, payload)
     hrow, hpk, payload = hrow[order], hpk[order], payload[order]
+    if hslot is not None:
+        hslot = hslot[order]
     hqp = payload & 0xFF
     hw = (payload >> 8) & 0xFF
     valid = hrow < N
@@ -1169,7 +1231,7 @@ def _dupes_curlcs(hrow, hpk, hqp, hw, to_idx, size, N):
     chain_bonus = started[hidx0] & (idx == first_ext[hidx0])
     curlcs = torch.where(chain_bonus, chain[hidx0],
                          torch.where(valid, hw, 0))
-    return hrow, hpk, hqp, curlcs
+    return hrow, hpk, hqp, hslot, curlcs, newpos
 
 
 def build_kernel(sig: PlanSig, n_rows: int, n_fields: int,
@@ -1182,7 +1244,7 @@ def build_kernel(sig: PlanSig, n_rows: int, n_fields: int,
     k = sig.k
 
     def fn(data, rt, decoded):
-        eligible, weight, rows, at_rows = core(data, rt, decoded)
+        eligible, weight, rows, at_rows, factors = core(data, rt, decoded)
         found = eligible.sum(dtype=torch.int32)
         if sig.order[0] == "rel":
             # ties: weight desc, then position asc, as lax.top_k does;
@@ -1191,9 +1253,11 @@ def build_kernel(sig: PlanSig, n_rows: int, n_fields: int,
                                device=rows.device)
             key = torch.where(eligible, weight, INT32_MIN).to(torch.int64)
             top = torch.topk((key << 32) | (0xFFFFFFFF - pos), k).values
-            return {"rowid": rows[0xFFFFFFFF - (top & 0xFFFFFFFF)],
+            top_pos = 0xFFFFFFFF - (top & 0xFFFFFFFF)
+            return {"rowid": rows[top_pos],
                     "weight": (top >> 32).to(torch.int32),
-                    "found": found}
+                    "found": found,
+                    **{n: v[top_pos] for n, v in factors.items()}}
         if sig.order[0] == "attr_id":
             k1 = torch.where(eligible, rows if sig.order[1] else ~rows,
                              INT32_MAX)
@@ -1209,14 +1273,43 @@ def build_kernel(sig: PlanSig, n_rows: int, n_fields: int,
         # only at pad positions, whose outputs are alike (row N, weight 0)
         key = (k1.to(torch.int64) << 32) | rows.to(torch.int64)
         pos = torch.topk(key, k, largest=False).indices
+        # the JAX package gathers the factors at the top ROWS (the same
+        # positions: attribute orders keep factors only in dense plans)
         return {"rowid": rows[pos],
                 "weight": torch.where(eligible, weight, 0)[pos],
-                "found": found}
+                "found": found,
+                **{n: v[rows[pos].to(torch.int64)]
+                   for n, v in factors.items()}}
 
     return fn
 
 
 def pack_output(out: dict) -> torch.Tensor:
     """One query's result as the batched layout's row: rowid[k] ++
-    weight[k] ++ found (i32[2k+1])."""
-    return torch.cat([out["rowid"], out["weight"], out["found"].reshape(1)])
+    weight[k] ++ found (i32[2k+1]), then the PACKEDFACTORS() arrays of the
+    top k in ``factors.PF_LAYOUT`` order when the program emits them
+    (float32 bits viewed as int32), so they ride the batch's one fetch."""
+    parts = [out["rowid"], out["weight"], out["found"].reshape(1)]
+    if "pf_bm25" in out:
+        from .factors import PF_LAYOUT
+        for name, _, is_float in PF_LAYOUT:
+            v = out[name].contiguous()
+            parts.append((v.view(torch.int32) if is_float
+                          else v.to(torch.int32)).reshape(-1))
+    return torch.cat(parts)
+
+
+def unpack_factors(row, k: int, n_fields: int, n_slots: int) -> dict:
+    """The PACKEDFACTORS() arrays of ``pack_output``'s row tail (a numpy
+    int32 array past rowid, weight and found): name -> [k] / [k, F] /
+    [k, max(S, 1)], float arrays as float32."""
+    from .factors import PF_LAYOUT
+    width = {"doc": 1, "field": n_fields, "word": max(n_slots, 1)}
+    out, off = {}, 0
+    for name, kind, is_float in PF_LAYOUT:
+        n = k * width[kind]
+        a = row[off:off + n].reshape((k,) if kind == "doc" else
+                                     (k, width[kind]))
+        out[name] = a.view("float32") if is_float else a
+        off += n
+    return out

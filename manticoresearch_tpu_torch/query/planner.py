@@ -1060,9 +1060,10 @@ def plan_query(
     eff_ranker = ranker
     ranker_expr: tuple = ()
     if isinstance(ranker, tuple) and ranker[0] == "expr":
-        raise NotImplementedError(
-            "ranker=expr (the expression ranker) is not ported to the "
-            "PyTorch search path yet")
+        from .expr import parse_expr as _parse_expr
+        tree = _parse_expr(ranker[1])
+        ranker_expr = _resolve_fieldmaps(tree, index.schema)
+        eff_ranker = "expr"
     elif expr[0] == "all":
         eff_ranker = "none"
     elif ranker == "proximity_bm25":

@@ -14,9 +14,10 @@ what the original gives on the same input:
   equal;
 - the tokenizer, the dictionary and ``FtQueryParser`` on a fixed list of
   text and query strings: equal tokens, terms and ASTs (or the same error);
-- ``plan_query`` on the queries of ``tests/test_torch_search.py``: equal
-  ``PlanSig`` and runtime arrays, every other field of the plan, and the
-  same ``render_plan`` text of its transformed tree;
+- ``plan_query`` on the queries of ``tests/test_torch_search.py``, and on
+  expression-ranker, sph04 and PACKEDFACTORS() queries and a 40-field
+  index: equal ``PlanSig`` and runtime arrays, every other field of the
+  plan, and the same ``render_plan`` text of its transformed tree;
 - ``WorkloadGen``: the same draws from the same seed;
 - ``from_jax_packed``: a copy equal to the JAX index and to the port's own
   build of the same documents, sharing no array with its source.
@@ -56,7 +57,8 @@ from manticoresearch_tpu_torch.text.tokenizer import (Tokenizer,
                                                       TokenizerSettings)
 
 from .test_search import DOCS
-from .test_torch_search import (EXAMPLE_QUERIES, N_RANDOM, _jax_query,
+from .test_torch_search import (EXAMPLE_QUERIES, N_RANDOM, WIDE_FIELDS,
+                                WIDE_FIELD_QUERIES, _jax_query,
                                 _random_queries)
 
 
@@ -123,9 +125,23 @@ def _attrs(mod_def, mod_type, kinds):
     return [mod_def(n, mod_type[k]) for n, k in kinds]
 
 
+def _wide_docs():
+    """40 full-text fields, a few words in some of them."""
+    rng = np.random.RandomState(3)
+    docs = []
+    for i in range(60):
+        d = dict(id=i + 1, g=i % 5)
+        for f in WIDE_FIELDS:
+            d[f] = (" ".join(f"w{int(x)}" for x in rng.randint(0, 12, 3))
+                    if rng.rand() < 0.3 else "")
+        docs.append(d)
+    return docs
+
+
 CORPORA = {
     "example": (["title", "content"],
                 [("group_id", "UINT"), ("group_id2", "UINT")], DOCS),
+    "wide": (WIDE_FIELDS, [("g", "UINT")], _wide_docs()),
     "mixed": (["title", "body"],
               [("year", "UINT"), ("score", "FLOAT"), ("big", "BIGINT"),
                ("color", "STRING"), ("tags", "MVA"), ("meta", "JSON")],
@@ -239,13 +255,15 @@ def _plan_both(port_idx: SearchIndex, jax_packed, q: SearchQuery):
                        JaxDictionary(jax_packed.dict_settings),
                        jax_packed.schema.fields)
     order = port_cq.sig.order
+    emit_factors = any(s.lower().replace(" ", "").startswith(
+        "packedfactors(") for s in (jq.select or []))
     jax_cq = jax_plan_query(
         parser.parse(jq.match), jax_packed, filters=jq.filters,
         ranker=jq.ranker, max_matches=jq.max_matches,
         filter_tree=jq.filter_tree, window=jq.offset + jq.limit,
         order=order, field_weights=jq.field_weights,
         idf_plain=jq.idf_plain, tfidf_normalized=jq.tfidf_normalized,
-        expansion_limit=jq.expansion_limit,
+        emit_factors=emit_factors, expansion_limit=jq.expansion_limit,
         packed_store=jax_packed.packed_store(),
         boolean_simplify=jq.boolean_simplify,
         expand_keywords=jq.expand_keywords, collation=jq.collation)
@@ -275,6 +293,44 @@ def test_plan_query_matches_jax_on_example_queries():
     for kw in EXAMPLE_QUERIES:
         _assert_plans_equal(*_plan_both(idx, jax_packed, SearchQuery(**kw)),
                             idx.schema, jax_packed.schema)
+
+
+_PF = ["id", "PACKEDFACTORS()"]
+EXPR_PLAN_QUERIES = [
+    ("example", dict(match="test document",
+                     ranker=("expr", "sum(lcs*user_weight)*1000+bm25"))),
+    ("example", dict(match="test one", ranker=(
+        "expr", "bm25f(1.2, 0.7, {title=5, content=1})*1000"
+                "+bm25a(1.2,0.75)+sum(atc)"))),
+    ("example", dict(match="this is this", ranker=("expr", "sum(lccs)"))),
+    ("example", dict(match="test", ranker="sph04")),
+    ("example", dict(match='"test document" one', ranker="sph04")),
+    ("example", dict(match="test document", select=_PF)),
+    ("example", dict(match="this is this", select=_PF,
+                     ranker=("expr", "sum(lcs)"))),
+    ("example", dict(match="test", select=["id", "PACKEDFACTORS({json=1})"],
+                     sort=[("group_id", True)])),
+] + [("wide", kw) for kw in WIDE_FIELD_QUERIES if not kw.get("group_by")]
+
+
+@pytest.mark.parametrize("corpus,kw", EXPR_PLAN_QUERIES, ids=[
+    str(i) for i in range(len(EXPR_PLAN_QUERIES))])
+def test_plan_query_matches_jax_on_expr_and_wide_queries(corpus, kw):
+    """The expression ranker's plans (the parsed formula, sph04's formula,
+    PACKEDFACTORS() forcing it, the folding runtime arrays) and a 40-field
+    index's (every plan dense, multi-word field-limit masks)."""
+    fields, kinds, docs = CORPORA[corpus]
+    jb = jax_builder.IndexBuilder(JaxSchema(
+        fields=fields, attrs=_attrs(JaxAttrDef, JaxAttrType, kinds)))
+    jb.add_documents(docs)
+    jax_packed = jb.build()
+    idx = SearchIndex(from_jax_packed(jax_packed), "cpu")
+    port_cq, jax_cq = _plan_both(idx, jax_packed, SearchQuery(**kw))
+    _assert_plans_equal(port_cq, jax_cq, idx.schema, jax_packed.schema)
+    if corpus == "wide":
+        assert not port_cq.sig.sparse
+    else:
+        assert port_cq.sig.ranker == "expr"
 
 
 def test_plan_query_matches_jax_on_random_queries():

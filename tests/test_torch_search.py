@@ -10,7 +10,10 @@ offset / limit, delete, rankers proximity_bm25 / proximity / bm25 / none /
 fieldmask, so ws_bm25, ws and the LCS path all run), and a seeded random
 differential of config-1/2 queries over ``bench.build_corpus`` with packed
 and residual term slots, through ``search`` and ``search_batch``; each
-call decodes all its packed windows in one grouped decode.
+call decodes all its packed windows in one grouped decode. A 40-field
+index (two fieldmask words), built by each package's own builder, runs
+every ranker, field limits past field 32 and GROUP BY; planning keys
+PACKEDFACTORS() apart.
 
 Tolerance: exact. Weights are integers computed by the reference formulas;
 docids, totals and word stats are integers and strings.
@@ -27,7 +30,9 @@ from manticoresearch_tpu.exec.searcher import SearchQuery as JaxQuery
 from manticoresearch_tpu.index.builder import IndexBuilder
 from manticoresearch_tpu.query.planner import AttrFilterDef as JaxFilter
 from manticoresearch_tpu.schema import AttrDef, AttrType, Schema
+from manticoresearch_tpu_torch import schema as port_schema
 from manticoresearch_tpu_torch.exec.searcher import SearchIndex, SearchQuery
+from manticoresearch_tpu_torch.index.builder import IndexBuilder as PortBuilder
 from manticoresearch_tpu_torch.ops import packed_store as ps
 from manticoresearch_tpu_torch.ops.device_index import from_jax_packed
 from manticoresearch_tpu_torch.ops.packed_store import PACK_MIN
@@ -52,6 +57,18 @@ def _jax_query(q: SearchQuery) -> JaxQuery:
 def _port(packed) -> SearchIndex:
     """The port's index on the CPU over a copy of a JAX-built index."""
     return SearchIndex(from_jax_packed(packed), "cpu")
+
+
+def _both_builders(fields, docs, attrs=()):
+    """(JAX index, the port's index on the CPU), each built by its own
+    package's builder from the same documents; attrs: (name, type)."""
+    jb = IndexBuilder(Schema(fields=list(fields), attrs=[
+        AttrDef(n, AttrType(t)) for n, t in attrs]))
+    jb.add_documents(docs)
+    pb = PortBuilder(port_schema.Schema(fields=list(fields), attrs=[
+        port_schema.AttrDef(n, port_schema.AttrType(t)) for n, t in attrs]))
+    pb.add_documents(docs)
+    return JaxIndex(jb.build()), SearchIndex(pb.build(), "cpu")
 
 
 def _summary(r):
@@ -140,27 +157,114 @@ def test_delete_matches_jax():
             _summary(jax_idx.search(_jax_query(q)))
 
 
-def test_out_of_slice_shapes_raise(example):
-    """ranker=expr, sph04 and PACKEDFACTORS() still raise. GROUP BY, a
+def test_former_out_of_slice_shapes_match_jax(example, wide_fields):
+    """What earlier slices refused now runs with the JAX package's results:
+    ranker=expr, sph04 and PACKEDFACTORS(), a 40-field index, GROUP BY, a
     filter on an expression (or on a dotted name that is no JSON path) and
-    ORDER BY a dotted name now run, with the JAX package's results."""
+    ORDER BY a dotted name."""
     jax_idx, idx = example
-    with pytest.raises(NotImplementedError, match="PACKEDFACTORS"):
-        idx.search(SearchQuery(match='"test one"',
-                               select=["id", "PACKEDFACTORS()"]))
-    with pytest.raises(NotImplementedError, match="ranker=expr"):
-        idx.search(SearchQuery(match="test", ranker=("expr", "bm25")))
-    with pytest.raises(NotImplementedError, match="ranker=sph04"):
-        idx.search_batch([SearchQuery(match="@title test", ranker="sph04")])
-    for q in (SearchQuery(match="test", group_by="group_id"),
-              SearchQuery(match="test", filters=_f(
-                  "group_id*2", "range_i", lo=0, hi=4)),
-              SearchQuery(match="", filters=_f(
-                  "group_id.x", "values", values=[1])),
-              SearchQuery(match="test", sort=[("meta.a", True)])):
-        want = _summary(jax_idx.search(_jax_query(q)))
-        assert _summary(idx.search(q)) == want
-        assert _summary(idx.search_batch([q])[0]) == want
+    wide = [(*wide_fields, SearchQuery(match="w1", ranker="fieldmask")),
+            (*wide_fields, SearchQuery(match="@f35 w1"))]
+    for j_idx, p_idx, q in [
+            (jax_idx, idx, q) for q in (
+                SearchQuery(match='"test one"',
+                            select=["id", "PACKEDFACTORS()"]),
+                SearchQuery(match="test", ranker=("expr", "bm25")),
+                SearchQuery(match="@title test", ranker="sph04"),
+                SearchQuery(match="test", group_by="group_id"),
+                SearchQuery(match="test", filters=_f(
+                    "group_id*2", "range_i", lo=0, hi=4)),
+                SearchQuery(match="", filters=_f(
+                    "group_id.x", "values", values=[1])),
+                SearchQuery(match="test", sort=[("meta.a", True)]))] + wide:
+        want = _summary(j_idx.search(_jax_query(q)))
+        assert (want["error"] is None and want["total_found"] > 0
+                or q.filters or q.sort)
+        assert _summary(p_idx.search(q)) == want
+        assert _summary(p_idx.search_batch([q])[0]) == want
+
+
+def test_plan_keys_packedfactors_apart(example):
+    """One MATCH planned with and without PACKEDFACTORS() in the select
+    list gives two plans (the factors force the expression ranker), each
+    cached under its own key, as in the JAX package."""
+    jax_idx, idx = example
+    plain = SearchQuery(match="test document")
+    pf = SearchQuery(match="test document", select=["id", "PACKEDFACTORS()"])
+    a, b = idx.plan(plain), idx.plan(pf)
+    assert not a.sig.emit_factors and a.sig.ranker == "proximity_bm25"
+    assert b.sig.emit_factors and b.sig.ranker == "expr"
+    assert a.sig != b.sig
+    assert idx.plan(plain) is a and idx.plan(pf) is b
+    assert repr(b.sig) == repr(jax_idx.plan(_jax_query(pf)).sig)
+
+
+WIDE_FIELDS = [f"f{i}" for i in range(40)]
+
+
+@pytest.fixture(scope="module")
+def wide_fields():
+    """40 full-text fields (two fieldmask words) over 60 documents, each
+    field holding 0-3 of 12 words, a uint ``g``; built by each package's
+    builder."""
+    rng = np.random.RandomState(3)
+    words = [f"w{i}" for i in range(12)]
+    docs = []
+    for i in range(60):
+        d = dict(id=i + 1, g=i % 5)
+        for f in WIDE_FIELDS:
+            d[f] = (" ".join(rng.choice(words, rng.randint(0, 4)))
+                    if rng.rand() < 0.3 else "")
+        docs.append(d)
+    return _both_builders(WIDE_FIELDS, docs, (("g", "uint"),))
+
+
+WIDE_FIELD_QUERIES = [
+    dict(match="w1"),
+    dict(match="w1 w2"),
+    dict(match="w1", ranker="fieldmask"),
+    dict(match="w1 | w3", ranker="fieldmask"),
+    dict(match="@f33 w4", ranker="fieldmask"),
+    dict(match="@f35 w1"),
+    dict(match="@(f1,f35) w2 | w3"),
+    dict(match="@f39 w1", ranker="sph04"),
+    dict(match="w1", ranker="sph04"),
+    dict(match="w1 w2", ranker=("expr", "field_mask + sum(lcs*user_weight)")),
+    dict(match="w2", select=["id", "PACKEDFACTORS()"]),
+    dict(match="w1", group_by="g"),
+    dict(match="w1 | w2", group_by="g", select=["count(*)", "sum(g)"],
+         ranker="fieldmask"),
+    dict(match="w1", ranker="bm25"),
+    dict(match="w5 w6", ranker="proximity"),
+    dict(match="w3", ranker="wordcount"),
+    dict(match="w3 w4", ranker="matchany"),
+    dict(match='"w1 w2"'),
+]
+
+
+@pytest.mark.parametrize("mode", ("auto", "always", "never"))
+@pytest.mark.parametrize("kw", WIDE_FIELD_QUERIES, ids=[
+    str(i) for i in range(len(WIDE_FIELD_QUERIES))])
+def test_wide_field_index_matches_jax(wide_fields, monkeypatch, kw, mode):
+    """More than 32 fields: [.., 2] fieldmask words, the fieldmask ranker
+    dropping fields past 31, field limits past field 32, sph04 and the
+    expression ranker, GROUP BY; every plan dense, whatever MT_SPARSE asks,
+    and no packed window (the builder keeps every term raw)."""
+    jax_idx, idx = wide_fields
+    monkeypatch.setenv("MT_SPARSE", mode)
+    for i in (jax_idx, idx):
+        i._plan_cache.clear()
+    q = SearchQuery(**kw)
+    if not q.group_by:
+        cq = idx.plan(q)
+        assert not cq.sig.sparse
+        assert not any(any(p) for p in cq.sig.slot_packed)
+    want = _summary(jax_idx.search(_jax_query(q)))
+    assert want["error"] is None and want["total_found"] > 0
+    ps.LAUNCHES.reset()
+    assert _summary(idx.search(q)) == want
+    assert _summary(idx.search_batch([q])[0]) == want
+    assert (ps.LAUNCHES.plain, ps.LAUNCHES.kernel) == (0, 0)
 
 
 @pytest.mark.parametrize("kw", [
