@@ -5,10 +5,11 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-Phases; each raises on a failure, so the exit code is then not 0. Every
-path is driven through ``SearchIndex.search_batch`` on ``device="cuda"``
-with the launch counters set to 0 just before and read just after, and
-its results are held equal to the same queries on ``device="cpu"``.
+Phases; each raises on a wrong result or launch count, so the exit code
+is then not 0. Every path is driven through ``SearchIndex.search_batch``
+(``ShardedIndex.search_batch`` in phase 18) on ``device="cuda"`` with the
+launch counters set to 0 just before and read just after, and its results
+are held equal to the same queries on ``device="cpu"``.
 
 1. Require CUDA. Print the card (``nvidia-smi`` name and power limit) and
    the torch and CUDA versions.
@@ -35,8 +36,9 @@ its results are held equal to the same queries on ``device="cpu"``.
    busy share, kernel launches), and the kernel against its plain version
    at the main path's shape (L2 flushed before each launch), at 65536 and
    at 262144 blocks of the main class (202 MB at c=16: beyond L2). The
-   kernel's time is its device time from ``torch.profiler``; the bound is
-   the bytes it must move over 3.35 TB/s.
+   kernel's time is its device time from ``torch.profiler`` where the
+   profiler recorded the launches, else CUDA events around each call; the
+   bound is the bytes it must move over 3.35 TB/s.
 8. Config 3 at 200k (dense plans): 64 queries of ``WorkloadGen.config3``
    (half ``"w1 w2"`` phrases, half ``"w1 w2"~5``, field weight
    content=3), and 64 of term pairs that stand adjacent (32 phrases) or
@@ -101,8 +103,8 @@ its results are held equal to the same queries on ``device="cpu"``.
     ``index_add_`` on the card (the library yardstick, timed here only).
 15. The expression ranker at 200k (after phase 12) and at 1M (after phase
     9e), dense plans: the 64 config-2 queries of ``WorkloadGen.config2``
-    under ``ranker=expr('sum(lcs*user_weight)*1000+bm25')``, under
-    ``ranker=sph04``, and 32 of them with ``select=["id",
+    (16 at 1M) under ``ranker=expr('sum(lcs*user_weight)*1000+bm25')``,
+    under ``ranker=sph04``, and half of them with ``select=["id",
     "PACKEDFACTORS()"]``: every plan dense with the expr ranker, K1 on each
     batch's work list, exactly one K1 launch per batch, the factor scatters
     through the segment-sum kernel (PACKEDFACTORS() batch) and no plain
@@ -121,8 +123,27 @@ its results are held equal to the same queries on ``device="cpu"``.
     ranker, field limits past field 32, sph04, ``field_mask`` in a formula,
     PACKEDFACTORS() and a GROUP BY in one batch: no K1 launch, equal to the
     CPU port.
-Each batch of phases 5-13 and 15-17 prints its warm walls and one profiled
+18. Bench config 5 (after phase 15 at 200k):
+    ``bench_corpus.build_corpus_shards(200_000, 50_000, 100, 8)``
+    (bench.py's config 5: 8 shards of the run's corpus) as a
+    ``ShardedIndex`` on the card (build and upload times, the shards'
+    device memory, and that of the fallback's per-shard indexes): phase 3's
+    64 config-1 queries (bench's config-5 traffic) and 64 config-2 queries,
+    every one on the merged path, with exactly one K1 launch per batch and
+    no plain decode, results equal to a ``ShardedIndex`` on the CPU and
+    (docids, weights, total_found) to phase 5's results of the single 200k
+    index on the card. Then every route in one batch on a small sharded
+    index (4,000 documents with an int, a float and a string attribute):
+    ORDER BY the int and the float attribute, asc and desc, on the merged
+    path, a GROUP BY and a string filter through the host-merge fallback;
+    one K1 launch for the merged queries plus one per shard search of the
+    fallback, equal to the CPU twin and to one index over the same
+    documents (group keys and counts for the GROUP BY).
+Each batch of phases 5-13 and 15-18 prints its warm walls and one profiled
 run (device time, busy share, kernel launches, host waits and copies).
+Every check of a result and every launch count raises on a failure; a
+time does not: where the profiler recorded no launch of a kernel that the
+counters saw, the run prints so and times the kernel with CUDA events.
 
 The last three lines of standard output are one JSON object with the
 kernels' numbers, the card's name and power limit, then
@@ -161,6 +182,9 @@ KERNEL_SMEM_ITEMS = 2048   # csrc/bitplane_decode.cu: kSmemItems
 SEG_SOURCE = "manticoresearch_tpu_torch/csrc/segment_sum.cu"
 SEG_REPLACES = "manticoresearch_tpu/ops/groupby.py:145"
 SEG_EVENT = "seg_"         # its three kernels: seg_init, seg_bounds, seg_walk
+# a sleep kernel ahead of each timed call (about 2 ms at 1.7 GHz): the host
+# enqueues the call before the device reaches it
+SLEEP_CYCLES = 3_000_000
 C4_BATCH = 32              # bench.py's config-4 batch: 128 // 4
 # segment-sum launches of each counted path (the bit-plane kernel's are in
 # launches_by_path)
@@ -497,17 +521,17 @@ EXPR_FORMULA = "sum(lcs*user_weight)*1000+bm25"
 PF_SELECT = ["id", "PACKEDFACTORS()"]
 
 
-def expr_batches(packed, seed: int) -> tuple[list, dict]:
-    """The measured config-2 draws of ``WorkloadGen.config2(BATCH)`` and
-    their expression-ranker twins: the formula, sph04, and the first half
-    with PACKEDFACTORS()."""
+def expr_batches(packed, seed: int, n: int = BATCH) -> tuple[list, dict]:
+    """The measured config-2 draws of ``WorkloadGen.config2(n)`` and their
+    expression-ranker twins: the formula, sph04, and the first half with
+    PACKEDFACTORS()."""
     gen = bench_corpus.WorkloadGen(np.random.RandomState(seed), VOCAB, packed)
-    qs = gen.config2(BATCH)[1]
+    qs = gen.config2(n)[1]
     return qs, {
         "expr": [replace(q, ranker=("expr", EXPR_FORMULA)) for q in qs],
         "sph04": [replace(q, ranker="sph04") for q in qs],
         "packedfactors": [replace(q, select=PF_SELECT)
-                          for q in qs[:BATCH // 2]]}
+                          for q in qs[:n // 2]]}
 
 
 EXPR_FORMULAS = [
@@ -743,27 +767,50 @@ def _event_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def kernel_device_ms(items: list, iters: int, flush: bool) -> float:
-    """Device time of one grouped launch (torch.profiler), optionally with
-    the L2 cache flushed by a 64 MB write before each launch."""
-    from torch.autograd import DeviceType
+def timed_calls(fn, iters: int, sleep_cycles: int, before=None):
+    """Run ``fn`` ``iters`` times under torch.profiler, each run between a
+    pair of CUDA events recorded after a sleep kernel of ``sleep_cycles``
+    (``before`` runs ahead of the sleep, outside the pair): the host has
+    enqueued the whole run before the device reaches it, so the pair
+    measures device work only. -> (the profiler's events, per-run ms)."""
     from torch.profiler import ProfilerActivity, profile
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for start, stop in pairs:
+            if before is not None:
+                before()
+            torch.cuda._sleep(sleep_cycles)
+            start.record()
+            fn()
+            stop.record()
+        torch.cuda.synchronize()
+    return prof.events(), [a.elapsed_time(b) for a, b in pairs]
+
+
+def kernel_device_ms(items: list, iters: int, flush: bool) -> float:
+    """Device time of one grouped launch, optionally with the L2 cache
+    flushed by a 64 MB write before each launch (outside the timed pair):
+    the mean of the launches the profiler recorded, or where it recorded
+    none, CUDA events around each call (the work list's copy included).
+    Launches the profiler missed are printed; the run goes on."""
+    from torch.autograd import DeviceType
     scrub = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     ps.decode_grouped(items)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if flush:
-                scrub.fill_(1)
-            ps.decode_grouped(items)
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
+    events, event_ms = timed_calls(lambda: ps.decode_grouped(items), iters,
+                                   SLEEP_CYCLES,
+                                   (lambda: scrub.fill_(1)) if flush else None)
+    us = [e.time_range.elapsed_us() for e in events
           if e.device_type == DeviceType.CUDA and KERNEL_EVENT in e.name]
-    if not us or min(us) <= 0:
-        raise AssertionError(f"the profiler saw no {KERNEL_EVENT} launches "
-                             "on the device")
-    return sum(us) / len(us) / 1e3
+    if len(us) < iters:
+        print(f"  the profiler recorded {len(us)} of {iters} {KERNEL_EVENT} "
+              f"launches; CUDA events around each call: "
+              f"{np.mean(event_ms) * 1e3:.2f} us")
+    if us:
+        return sum(us) / len(us) / 1e3
+    return float(np.mean(event_ms))
 
 
 def time_decode(name: str, items: list, iters: int, flush: bool) -> dict:
@@ -852,14 +899,16 @@ def float_aggregates(idx: SearchIndex, queries: list[SearchQuery]) -> int:
                for a in idx._plan_grouped(q)[1].aggs)
 
 
-def run_counted(name: str, idx: SearchIndex, queries: list[SearchQuery],
-                launches_by_path: dict,
-                want_seg: int | None = 0) -> tuple[list, float]:
-    """Drive one ``search_batch`` with the launch counters set to 0 just
-    before and read just after: exactly one bit-plane launch where the
-    batch reads packed windows, else none, ``want_seg`` segment-sum
-    launches (any number when None), and never a plain version."""
-    want = 1 if reads_packed(idx, queries) else 0
+def run_counted(name: str, idx, queries: list[SearchQuery],
+                launches_by_path: dict, want_seg: int | None = 0,
+                want: int | None = None) -> tuple[list, float]:
+    """Drive one ``search_batch`` of a ``SearchIndex`` or ``ShardedIndex``
+    with the launch counters set to 0 just before and read just after:
+    ``want`` bit-plane launches (by default exactly one where the batch
+    reads packed windows, else none), ``want_seg`` segment-sum launches
+    (any number when None), and never a plain version."""
+    if want is None:
+        want = 1 if reads_packed(idx, queries) else 0
     torch.cuda.synchronize()
     ps.LAUNCHES.reset()
     gb.LAUNCHES.reset()
@@ -1154,12 +1203,13 @@ def check_segment_kernel(captured: list) -> float:
 
 def time_segment(name: str, calls: list, iters: int) -> dict:
     """Per-call times over one batch's captured calls: the kernel's
-    device time (its three launches, torch.profiler), the wrapper's call
+    device time (its three launches: the mean of each kernel's launches
+    that torch.profiler recorded, or where it recorded none of one, CUDA
+    events around each run of the calls), the wrapper's call
     time (CUDA events, in turns library, kernel, kernel, library),
     ``index_add_`` on the card, the plain version on the host CPU, and
     the bound."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     lib_in = [(v, g.long(), n) for v, g, n in calls]
     cpu_in = [(v.cpu(), g.cpu(), n) for v, g, n in calls]
 
@@ -1178,15 +1228,30 @@ def time_segment(name: str, calls: list, iters: int) -> dict:
     k1 = _event_ms(kernel, iters)
     k2 = _event_ms(kernel, iters)
     lib2 = _event_ms(library, iters)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            kernel()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and SEG_EVENT in e.name)
-    if us <= 0:
-        raise AssertionError("the profiler saw no segment-sum kernels")
+    events, event_ms = timed_calls(kernel, iters,
+                                   SLEEP_CYCLES * max(len(calls) // 8, 1))
+    by_kernel: dict = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and SEG_EVENT in e.name:
+            by_kernel.setdefault(e.name.split("(")[0], []).append(
+                e.time_range.elapsed_us())
+    # per run of every call: seg_init and seg_walk once per call with a
+    # group, seg_bounds once per call with a position too
+    with_group = sum(n > 0 for _, _, n in calls)
+    expect = {"init": with_group, "walk": with_group,
+              "bounds": sum(n > 0 and v.numel() > 0 for v, _, n in calls)}
+    counts = {k: sum(len(u) for kname, u in by_kernel.items() if k in kname)
+              for k in expect}
+    if counts != {k: iters * n for k, n in expect.items()}:
+        print(f"  the profiler recorded {counts} segment-sum launches of "
+              f"{name}, of {({k: iters * n for k, n in expect.items()})}")
+    if all(counts[k] or not expect[k] for k in expect):
+        # mean of the recorded launches of each of the three kernels
+        us = iters * sum(np.mean(u) * expect[k] for k in expect
+                         for kname, u in by_kernel.items() if k in kname)
+    else:
+        us = sum(event_ms) * 1e3
+        print(f"  {name}: CUDA events around each run give the device time")
     t0 = time.perf_counter()
     for v, g, n in cpu_in:
         gb.segment_sum_plain(v, g, n)
@@ -1207,6 +1272,152 @@ def time_segment(name: str, calls: list, iters: int) -> dict:
     return r
 
 
+SHARDS = 8        # bench.py config 5: min(8, devices) shards of the corpus
+ROUTE_DOCS = 4000
+ROUTE_COLORS = ["red", "green", "blue", "cyan"]
+
+
+def route_corpus():
+    """A small corpus with an int, a float and a string attribute, as
+    SHARDS round-robin shards (``partition_documents``) and as one index;
+    30 Zipf-drawn words, so that the frequent ones have packed slots."""
+    from manticoresearch_tpu_torch.index.builder import IndexBuilder
+    from manticoresearch_tpu_torch.parallel.sharded import \
+        partition_documents
+    from manticoresearch_tpu_torch.schema import AttrDef, AttrType, Schema
+    rng = np.random.RandomState(41)
+    words = [f"w{i}" for i in range(30)]
+    docs = [dict(id=i, title=words[int(rng.randint(0, 30))],
+                 body=" ".join(words[int(z) % 30] for z in rng.zipf(1.3, 10)),
+                 year=2000 + int(rng.randint(0, 12)),
+                 score=float(np.round(rng.rand(), 3)),
+                 color=ROUTE_COLORS[int(rng.randint(0, 4))])
+            for i in range(1, ROUTE_DOCS + 1)]
+    schema = Schema(fields=["title", "body"],
+                    attrs=[AttrDef("year", AttrType.UINT),
+                           AttrDef("score", AttrType.FLOAT),
+                           AttrDef("color", AttrType.STRING)])
+
+    def build(part):
+        b = IndexBuilder(schema)
+        b.add_documents(part)
+        return b.build()
+    return [build(p) for p in partition_documents(docs, SHARDS)], build(docs)
+
+
+def route_queries() -> list[SearchQuery]:
+    """ORDER BY an int and a float attribute, asc and desc (the merged
+    path); a GROUP BY and a string filter (the host-merge fallback)."""
+    f = AttrFilterDef
+    kinds = [
+        dict(match="w1 | w3", sort=[("year", True)]),
+        dict(match="w1 | w3", sort=[("year", False), ("id", True)]),
+        dict(match="w2", sort=[("score", True)]),
+        dict(match="w2 w5", sort=[("score", False)]),
+        dict(match="w1", group_by="year", select=["count(*)", "sum(score)"],
+             sort=[("year", True)]),
+        dict(match="w1 | w4", filters=[f("color", "values", values=["red"])]),
+    ]
+    return [SearchQuery(limit=20, **kw) for kw in kinds]
+
+
+def sharded_launches(sidx, queries: list[SearchQuery]) -> int:
+    """Bit-plane launches one ``ShardedIndex.search_batch`` makes: one for
+    the merged queries where they read packed windows, and one per shard
+    search of the fallback queries that reads them (each shard's own
+    ``SearchIndex`` decodes its windows in one call)."""
+    routes = [sidx._prep(q)[0] for q in queries]
+    merged = [q for q, r in zip(queries, routes) if r == "ok"]
+    want = int(any(window_kinds(sidx.plan(q).sig) for q in merged))
+    return want + sum(reads_packed(p, [q])
+                      for q, r in zip(queries, routes) if r == "fallback"
+                      for p in sidx._per_shard_indexes())
+
+
+def check_single(name: str, queries: list, got: list, want: list) -> None:
+    """A distributed result against one index over the same documents:
+    docids, weights and total_found; keys and counts of a GROUP BY (its
+    representatives may differ between the part merge and one index)."""
+    for q, g, w in zip(queries, got, want):
+        if q.group_by:
+            same = ([(m.attrs[q.group_by], m.attrs["count(*)"])
+                     for m in g.matches]
+                    == [(m.attrs[q.group_by], m.attrs["count(*)"])
+                        for m in w.matches])
+        else:
+            same = ([(m.docid, m.weight) for m in g.matches]
+                    == [(m.docid, m.weight) for m in w.matches])
+        if not same or g.total_found != w.total_found:
+            raise AssertionError(f"{name} {q.match!r}: sharded "
+                                 f"{_summary(g)} != one index {_summary(w)}")
+    print(f"{name}: {len(queries)} queries equal to one index over the same "
+          "documents on cuda (docids, weights, total_found; group keys and "
+          "counts)")
+
+
+def sharded_phase(gpu: SearchIndex, batches: dict, gpu_results: dict,
+                  launches_by_path: dict, t_start: float) -> None:
+    """Phase 18: bench config 5 (8 shards of the 200k corpus on one card)
+    and a batch of every route on a small sharded index."""
+    from manticoresearch_tpu_torch.parallel.sharded import ShardedIndex
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    shards = bench_corpus.build_corpus_shards(N_DOCS, VOCAB, AVG_LEN, SHARDS)
+    print(f"config 5: {len(shards)} shards of "
+          f"{sorted({s.n_docs for s in shards})} docs, "
+          f"{sum(s.n_postings for s in shards)} postings, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sgpu = ShardedIndex(shards, "cuda")
+    torch.cuda.synchronize()
+    print(f"config 5 upload to cuda: {time.perf_counter() - t0:.1f} s; "
+          f"device memory of the shards {tree_bytes(sgpu.data) / 2**20:.1f} "
+          f"MiB")
+    t0 = time.perf_counter()
+    scpu = ShardedIndex(shards, "cpu")
+    print(f"config 5 upload to cpu: {time.perf_counter() - t0:.1f} s")
+    for name in ("config1", "config2"):
+        qs = batches[name]
+        path = f"config 5 {name}"
+        routes = Counter(sgpu._prep(q)[0] for q in qs)
+        print(f"{path}: routes {dict(routes)}")
+        if routes != Counter({"ok": len(qs)}):
+            raise AssertionError(f"{path}: a query left the merged path")
+        res, _ = run_counted(path, sgpu, qs, launches_by_path, want=1)
+        check_equal(path, qs, res, scpu.search_batch(qs))
+        check_single(path, qs, res, gpu_results[name])
+        time_batch(path, sgpu, qs, 2, qs[:16])
+    del scpu
+    t0 = time.perf_counter()
+    fallback_bytes = sum(index_bytes(p) for p in sgpu._per_shard_indexes())
+    print(f"config 5: the fallback's per-shard indexes (a second upload of "
+          f"every shard) take {fallback_bytes / 2**20:.1f} MiB on cuda, "
+          f"uploaded in {time.perf_counter() - t0:.1f} s")
+    del sgpu
+    print(f"{since(t_start)} config 5 done")
+
+    t0 = time.perf_counter()
+    rshards, rone = route_corpus()
+    rgpu = ShardedIndex(rshards, "cuda")
+    rcpu = ShardedIndex(rshards, "cpu")
+    one = SearchIndex(rone, "cuda")
+    print(f"route index: {SHARDS} shards of {rone.n_docs} docs built and "
+          f"uploaded in {time.perf_counter() - t0:.1f} s")
+    qs = route_queries()
+    routes = [rgpu._prep(q)[0] for q in qs]
+    print(f"config 5 routes: {routes}")
+    if routes.count("ok") != 4 or routes.count("fallback") != 2:
+        raise AssertionError("config 5 routes: wrong routes")
+    want = sharded_launches(rgpu, qs)
+    res, _ = run_counted("config 5 routes", rgpu, qs, launches_by_path,
+                         want_seg=None, want=want)
+    check_equal("config 5 routes", qs, res, rcpu.search_batch(qs))
+    check_single("config 5 routes", qs, res, one.search_batch(qs))
+    time_batch("config 5 routes", rgpu, qs, 2)
+    print(f"{since(t_start)} phase 18 done in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def set_sparse_mode(mode: str, *indexes: SearchIndex) -> None:
     """The planner's MT_SPARSE override; cached plans are dropped."""
     os.environ["MT_SPARSE"] = mode
@@ -1214,12 +1425,17 @@ def set_sparse_mode(mode: str, *indexes: SearchIndex) -> None:
         idx._plan_cache.clear()
 
 
-def index_bytes(idx: SearchIndex) -> int:
+def tree_bytes(tree: dict) -> int:
+    """Bytes of the tensors of a data dict (one level of nested dicts)."""
     total = 0
-    for v in idx.device.data_pytree().values():
+    for v in tree.values():
         for t in (v.values() if isinstance(v, dict) else [v]):
             total += t.numel() * t.element_size()
     return total
+
+
+def index_bytes(idx: SearchIndex) -> int:
+    return tree_bytes(idx.device.data_pytree())
 
 
 def since(t_start: float) -> str:
@@ -1352,6 +1568,10 @@ def main() -> int:
                                       launches_by_path, 2))
     seg_calls_pf_dense = capture_segment_calls(gpu, ex["packedfactors"])
     print(f"{since(t_start)} 200k expression ranker done")
+
+    # 18. config 5: the distributed index, 8 shards of the 200k corpus on
+    # the card, against the CPU twin and the single 200k index
+    sharded_phase(gpu, batches, gpu_results, launches_by_path, t_start)
     del gpu, cpu, packed, data, batch_items, plans, all_plans
     torch.cuda.empty_cache()
     print(f"{since(t_start)} 200k phases done")
@@ -1453,7 +1673,9 @@ def main() -> int:
     print(f"{since(t_start)} {tag} config 4 done")
 
     # 15 at 1M: the expression ranker's batches, dense plans
-    base, ex = expr_batches(big, 26)
+    # (16 draws, not 64: the CPU port's dense 1M comparisons of these
+    # batches are the slowest part of the run)
+    base, ex = expr_batches(big, 26, BATCH // 4)
     max_err = max(max_err, expr_phase(tag, gpu, cpu, base, ex,
                                       launches_by_path, 2))
     seg_calls_pf = capture_segment_calls(gpu, ex["packedfactors"])

@@ -1,11 +1,12 @@
 """The benchmark corpus and query generator of ``bench.py``, on the port.
 
-``build_corpus`` and ``WorkloadGen`` are copies of ``bench.build_corpus``
-and ``bench.WorkloadGen`` that build with the port's own builder and make
-the port's ``SearchQuery``: the same seed gives the same corpus and the
-same draws. ``positional_pairs`` draws term pairs that stand near each
-other in a document, so that phrase and proximity queries made of them
-find something.
+``build_corpus``, ``build_corpus_shards`` and ``WorkloadGen`` are copies of
+``bench.build_corpus``, ``bench.build_corpus_shards`` and
+``bench.WorkloadGen`` that build with the port's own builder and make the
+port's ``SearchQuery``: the same seed gives the same corpus, the same
+shards and the same draws. ``positional_pairs`` draws term pairs that
+stand near each other in a document, so that phrase and proximity queries
+made of them find something.
 """
 from __future__ import annotations
 
@@ -36,6 +37,44 @@ def build_corpus(n_docs: int, vocab: int, avg_len: int, seed: int = 42):
         vocab=[f"t{i:0{width}d}" for i in range(vocab)],
     )
     return packed
+
+
+def build_corpus_shards(n_docs: int, vocab: int, avg_len: int,
+                        n_shards: int, seed: int = 42):
+    """The same synthetic corpus split into per-shard PackedIndexes
+    (BASELINE config 5: distributed over local shards)."""
+    from .index.builder import build_from_pretokenized
+    from .schema import AttrDef, AttrType, Schema
+
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(avg_len // 2, avg_len * 2, n_docs)
+    offsets = np.zeros(n_docs + 1, np.int64)
+    offsets[1:] = np.cumsum(lens)
+    z = rng.zipf(1.25, int(offsets[-1]))
+    terms = np.minimum(z - 1, vocab - 1).astype(np.int64)
+    schema = Schema(fields=["content"],
+                    attrs=[AttrDef("year", AttrType.UINT),
+                           AttrDef("group_id", AttrType.UINT)])
+    width = max(4, len(str(vocab - 1)))
+    vocab_list = [f"t{i:0{width}d}" for i in range(vocab)]
+    year = 2000 + (np.arange(n_docs) % 25)
+    gid = np.arange(n_docs) % 100
+    shards = []
+    per = (n_docs + n_shards - 1) // n_shards
+    for si in range(n_shards):
+        lo, hi = si * per, min((si + 1) * per, n_docs)
+        if lo >= hi:
+            break
+        o = offsets[lo:hi + 1] - offsets[lo]
+        shards.append(build_from_pretokenized(
+            schema,
+            doc_ids=np.arange(lo + 1, hi + 1, dtype=np.int64),
+            doc_terms=terms[offsets[lo]:offsets[hi]],
+            doc_offsets=o,
+            attrs={"year": year[lo:hi], "group_id": gid[lo:hi]},
+            vocab=vocab_list,
+        ))
+    return shards
 
 
 def positional_pairs(packed, rng, n: int, max_gap: int,

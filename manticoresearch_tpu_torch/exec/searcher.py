@@ -48,7 +48,7 @@ from ..ops.device_index import upload
 from ..ops.groupby import (AggSpec, GroupSpec, build_groupby,
                            pack_groupby_output, probe_groupby,
                            unpack_groupby_row)
-from ..ops.packed_store import decode_grouped
+from ..ops.packed_store import decode_lists
 from ..ops.search import (INT32_MIN, build_kernel, pack_output,
                           packed_windows, unpack_factors)
 from ..query.explain import render_plan
@@ -353,8 +353,12 @@ class SearchIndex:
     # driving the per-query generators
     # ------------------------------------------------------------------
     def _drive(self, queries: list[SearchQuery]) -> list[SearchResult]:
-        results: list[SearchResult | None] = [None] * len(queries)
-        gens = [self._steps(q) for q in queries]
+        return self._drive_steps([self._steps(q) for q in queries])
+
+    def _drive_steps(self, gens: list) -> list[SearchResult]:
+        """Drive generators of device work (``_steps``) together, one round
+        of device work at a time, until each has returned its result."""
+        results: list[SearchResult | None] = [None] * len(gens)
         pending: dict[int, tuple] = {}
         for i, g in enumerate(gens):
             self._advance(i, g, None, pending, results)
@@ -436,18 +440,8 @@ class SearchIndex:
         one ``decode_grouped`` call; -> per plan, its program's
         ``decoded`` slices in order. (A group-by program that forces a
         dense plan reads the same windows.)"""
-        wins = [packed_windows(cq.sig, cq.slot_pb, data, cq.runtime)
-                for cq in plans]
-        items = [w for ws in wins for w in ws]
-        if not items:
-            return [[] for _ in plans]
-        out, offsets = decode_grouped(items)
-        flat = [part.view(-1) for part in out.split(np.diff(offsets).tolist())]
-        per_plan, j = [], 0
-        for ws in wins:
-            per_plan.append(flat[j:j + len(ws)])
-            j += len(ws)
-        return per_plan
+        return decode_lists([packed_windows(cq.sig, cq.slot_pb, data,
+                                            cq.runtime) for cq in plans])
 
     # ------------------------------------------------------------------
     # the query paths, as generators of device work

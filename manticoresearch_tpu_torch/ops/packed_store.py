@@ -357,6 +357,23 @@ def decode_grouped(items: list[tuple]) -> tuple[torch.Tensor, np.ndarray]:
     return out, offsets
 
 
+def decode_lists(wins: list[list[tuple]]) -> list[list[torch.Tensor]]:
+    """Decode several lists of windows (one per program, each as
+    ``ops.search.packed_windows`` gives it) in one ``decode_grouped`` call,
+    or none where no list holds a window; -> per list, each window's
+    values flat (int32 [nb * 128]), in order."""
+    items = [w for ws in wins for w in ws]
+    if not items:
+        return [[] for _ in wins]
+    out, offsets = decode_grouped(items)
+    flat = [part.view(-1) for part in out.split(np.diff(offsets).tolist())]
+    per, j = [], 0
+    for ws in wins:
+        per.append(flat[j:j + len(ws)])
+        j += len(ws)
+    return per
+
+
 def decode_words(words: torch.Tensor, c: int) -> torch.Tensor:
     """[nb, 4c] int32 words -> [nb, 128] int32 values (bit-plane extract)."""
     return decode_grouped([(words, None, c)])[0]

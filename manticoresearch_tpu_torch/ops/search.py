@@ -491,10 +491,11 @@ def _filter_mask(spec, vals, data: dict, rows_vec: torch.Tensor, at_rows,
 
 
 def _float_order_key(v: torch.Tensor) -> torch.Tensor:
-    """float32 -> int32 with the order of JAX's sort comparator, NaN after
-    +inf. (Its -0.0 == 0.0 needs no care: stored floats are never -0.0, so
-    a key column holds zeros of one sign.)"""
+    """float32 -> int32 with the order of JAX's sort comparator
+    (``lax.sort`` canonicalizes its float keys): -0.0 equal to +0.0, every
+    NaN after +inf."""
     v = torch.where(torch.isnan(v), float("nan"), v)
+    v = torch.where(v == 0, 0.0, v)
     b = v.view(torch.int32)
     return b ^ ((b >> 31) & 0x7FFFFFFF)
 
@@ -735,7 +736,7 @@ def build_match_core(sig: PlanSig, n_rows: int, n_fields: int,
         # BM25 stays the doc-level tf, gated on a qualifying hit ----
         lim_hit_ok: dict = {}      # slot -> per-hit qualify mask
         lim_present: dict = {}
-        zspans = rt["zspans"]
+        zspans = rt.get("zspans", ())   # read only by ZONE limits
         zctr = 0                   # cursor into zspans (planner order)
         zspan_acc: dict = {}       # ZONESPAN: zone list -> member state
         for s, lmask, f_start, f_end, zlim, maxpos in sig.slot_limited:

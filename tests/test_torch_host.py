@@ -524,3 +524,183 @@ def test_multi_sort_helpers_match_jax(seed):
         port_multi._apply_sort(got, q)
         jax_multi._apply_sort(want, q)
         assert [m.docid for m in got] == [m.docid for m in want]
+
+
+# --------------------------------------------------------------------------
+# the distributed index's host half: shards, union view, part merge
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("n_docs,n_shards", [(2000, 3), (9, 4)])
+def test_build_corpus_shards_matches_bench(n_docs, n_shards):
+    jax_shards = bench.build_corpus_shards(n_docs, 400, 30, n_shards)
+    port_shards = bench_corpus.build_corpus_shards(n_docs, 400, 30, n_shards)
+    assert len(port_shards) == len(jax_shards)
+    for p, j in zip(port_shards, jax_shards):
+        _assert_packed_equal(p, j)
+
+
+def test_union_view_and_partition_match_jax():
+    from manticoresearch_tpu.parallel import sharded as jax_sharded
+    from manticoresearch_tpu_torch.parallel import sharded as port_sharded
+    fields, kinds, docs = CORPORA["mixed"]
+    jparts = jax_sharded.partition_documents(docs, 3)
+    assert port_sharded.partition_documents(docs, 3) == jparts
+    shards = []
+    for part in jparts:
+        jb = jax_builder.IndexBuilder(JaxSchema(
+            fields=fields, attrs=_attrs(JaxAttrDef, JaxAttrType, kinds)))
+        jb.add_documents(part)
+        shards.append(jb.build())
+    ju = jax_sharded._UnionView(shards)
+    pu = port_sharded._UnionView([from_jax_packed(s) for s in shards])
+    for name in ("n_docs", "term_strs", "term_docs", "term_hits",
+                 "term_offsets", "post_hit_offset", "hit_packed",
+                 "field_lens", "attrs_mva"):
+        assert _plain(getattr(pu, name)) == _plain(getattr(ju, name)), name
+    for t in ju.term_strs[::7] + ["nosuchterm", ""]:
+        assert pu.term_id(t) == ju.term_id(t)
+    arr = np.arange(5, dtype=np.int32)
+    for size, value in ((3, 0), (9, -1)):
+        np.testing.assert_array_equal(
+            port_sharded._pad_to(arr, size, value),
+            jax_sharded._pad_to(arr, size, value))
+
+
+def _part_results(mod, seed, grouped=False):
+    """Per-part SearchResults of one package's classes: random matches
+    with duplicate docids across parts, one part in error."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for part in range(4):
+        ms = []
+        for _ in range(int(rng.randint(0, 9))):
+            d = int(rng.randint(1, 30))
+            attrs = {"a": int(rng.randint(0, 4)),
+                     "s": ["x", "y", ""][d % 3], "f": float(d % 5) / 2}
+            if grouped:
+                attrs = {"g": int(rng.randint(0, 5)),
+                         "count(*)": int(rng.randint(1, 6)),
+                         "sum(a)": int(rng.randint(0, 20)),
+                         "min(a)": int(rng.randint(0, 3)),
+                         "max(a)": int(rng.randint(3, 9))}
+                attrs["@groupby"] = attrs["g"]
+            m = mod.Match(d, int(rng.randint(1, 4)) * 1000, attrs)
+            m._rowid = int(rng.randint(0, 50))
+            ms.append(m)
+        err = "part failed" if part == 2 and seed % 2 else None
+        out.append(mod.SearchResult(
+            ms, len(ms), len(ms) + int(rng.randint(0, 3)), 1.0,
+            [mod.WordStat(w, part + i, 2 * part + i)
+             for i, w in enumerate(("alpha", "beta")[: 1 + part % 2])],
+            error=err))
+    return out
+
+
+def _merged_summary(r):
+    return (r.error, r.total, r.total_found, r.warning,
+            [(m.docid, m.weight, m.attrs) for m in r.matches],
+            [(w.word, w.docs, w.hits) for w in r.word_stats])
+
+
+MERGE_QUERIES = [
+    dict(), dict(offset=2, limit=5), dict(sort=[("a", False), ("id", True)]),
+    dict(sort=[("s", True), ("a", False)]), dict(sort=[("weight", True)]),
+    dict(sort=[("f", False)], max_matches=6),
+]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_part_merge_matches_jax(seed):
+    from manticoresearch_tpu.exec import multi as jax_multi
+    from manticoresearch_tpu.exec import searcher as jax_searcher
+    from manticoresearch_tpu_torch.exec import multi as port_multi
+    from manticoresearch_tpu_torch.exec import searcher as port_searcher
+    for kw in MERGE_QUERIES:
+        for mode in (dict(), dict(agent_mode=True), dict(rt_heap=True)):
+            got = port_multi.merge_part_results(
+                _part_results(port_searcher, seed), SearchQuery(**kw), None,
+                **mode)
+            want = jax_multi.merge_part_results(
+                _part_results(jax_searcher, seed), jax_searcher.SearchQuery(
+                    **kw), None, **mode)
+            assert _merged_summary(got) == _merged_summary(want), (kw, mode)
+    assert _plain(port_multi.merge_word_stats(
+        _part_results(port_searcher, seed))) == _plain(
+        jax_multi.merge_word_stats(_part_results(jax_searcher, seed)))
+
+
+def test_minimize_result_schema_matches_jax():
+    from manticoresearch_tpu.exec import multi as jax_multi
+    from manticoresearch_tpu.exec import searcher as jax_searcher
+    from manticoresearch_tpu_torch.exec import multi as port_multi
+    from manticoresearch_tpu_torch.exec import searcher as port_searcher
+    kinds = [[("a", "BOOL"), ("b", "UINT"), ("c", "STRING"), ("d", "UINT")],
+             [("a", "FLOAT"), ("b", "BIGINT"), ("c", "UINT"), ("d", "UINT")],
+             [("a", "BOOL"), ("b", "TIMESTAMP")]]
+
+    def run(mod, searcher, sdef, stype, schema_cls):
+        schemas = [schema_cls(fields=["t"], attrs=_attrs(sdef, stype, k))
+                   for k in kinds]
+        results = [searcher.SearchResult(
+            [searcher.Match(7 + i, 1, {"a": True, "b": -3, "c": "z", "d": i})],
+            1, 1, 0.0, []) for i in range(len(kinds))]
+        out = mod.minimize_result_schema(results, schemas)
+        return _plain(out), [(m.docid, m.attrs) for r in results
+                             for m in r.matches]
+    for a, b in [("bool", "float"), ("uint", "bigint"), ("timestamp", "bool"),
+                 ("string", "uint"), ("float", "float")]:
+        assert port_multi._unify_attr_type(a, b) == \
+            jax_multi._unify_attr_type(a, b)
+    assert run(port_multi, port_searcher, AttrDef, AttrType, Schema) == \
+        run(jax_multi, jax_searcher, JaxAttrDef, JaxAttrType, JaxSchema)
+
+
+class _Part:
+    """A part that answers with fixed results: grouped rows for a grouped
+    query, the raw match window otherwise."""
+
+    def __init__(self, grouped, raw, n_docs):
+        self.grouped, self.raw, self.n_docs = grouped, raw, n_docs
+
+    def search(self, q):
+        return self.grouped if q.group_by else self.raw
+
+
+GROUPED_QUERIES = [
+    dict(select=["count(*)", "sum(a)", "min(a)", "max(a)"]),
+    dict(select=["count(*)"], sort=[("@count", False)]),
+    dict(select=["count(*)"], sort=[("g", True)], offset=1, limit=2),
+    dict(select=["count(*)", "sum(a)"], sort=[("a", False)]),
+    dict(select=["count(*)", "count(distinct a)"]),
+    dict(select=["count(*)"], within_sort=[("a", True)]),
+]
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_search_grouped_parts_matches_jax(seed):
+    from manticoresearch_tpu.exec import multi as jax_multi
+    from manticoresearch_tpu.exec import searcher as jax_searcher
+    from manticoresearch_tpu_torch.exec import multi as port_multi
+    from manticoresearch_tpu_torch.exec import searcher as port_searcher
+
+    def parts(searcher):
+        grouped = [r for r in _part_results(searcher, seed, grouped=True)
+                   if not r.error]
+        raw = [r for r in _part_results(searcher, seed + 100)
+               if not r.error]
+        for r in raw:
+            for m in r.matches:
+                m.attrs["g"] = m.attrs["a"] % 3
+        return [_Part(g, w, 40) for g, w in zip(grouped, raw)]
+    schema_p = Schema(fields=["t"], attrs=_attrs(
+        AttrDef, AttrType, [("g", "UINT"), ("a", "UINT")]))
+    schema_j = JaxSchema(fields=["t"], attrs=_attrs(
+        JaxAttrDef, JaxAttrType, [("g", "UINT"), ("a", "UINT")]))
+    for kw in GROUPED_QUERIES:
+        for mode in (dict(), dict(segments=True), dict(agent_mode=True)):
+            got = port_multi.search_grouped_parts(
+                parts(port_searcher), SearchQuery(group_by="g", **kw),
+                schema_p, **mode)
+            want = jax_multi.search_grouped_parts(
+                parts(jax_searcher), jax_searcher.SearchQuery(
+                    group_by="g", **kw), schema_j, **mode)
+            assert _merged_summary(got) == _merged_summary(want), (kw, mode)

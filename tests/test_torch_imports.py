@@ -8,7 +8,8 @@ AST scan of every import statement, function bodies included). The JAX
 package's own import chain to jax is still computed from its module-level
 imports, not from a hard-coded list. A subprocess in which importing any
 of those names raises then imports the port and ``chip_smoke``, builds an
-index with the port's builder and runs one query on the CPU.
+index with the port's builder and runs one query on the CPU, on one index
+and on a two-shard ``ShardedIndex``.
 
 Tolerance: exact (import graphs and docids).
 """
@@ -104,6 +105,8 @@ def test_port_imports_nothing_that_reaches_jax():
     reach = _jax_reaching_modules()
     files = _files("manticoresearch_tpu_torch") + [REPO / "chip_smoke.py"]
     assert len(files) >= 20
+    assert REPO / "manticoresearch_tpu_torch" / "parallel" / "sharded.py" \
+        in files
     bad = {}
     for f in files:
         deps = _imports(f, module_level_only=False)
@@ -144,6 +147,18 @@ b.add_documents([dict(id=i + 1, g=i, title=t) for i, t in enumerate(
     ["red apple", "green apple pie", "blue sky", "apple apple"])])
 r = SearchIndex(b.build(), "cpu").search(SearchQuery(match="apple"))
 assert r.error is None, r.error
+
+from manticoresearch_tpu_torch.parallel.sharded import ShardedIndex
+shards = []
+for part in (["red apple", "blue sky"], ["green apple pie", "apple apple"]):
+    b = IndexBuilder(Schema(fields=["title"],
+                            attrs=[AttrDef("g", AttrType.UINT)]))
+    b.add_documents([dict(id=len(shards) * 2 + i + 1, g=i, title=t)
+                     for i, t in enumerate(part)])
+    shards.append(b.build())
+rs = ShardedIndex(shards, "cpu").search(SearchQuery(match="apple"))
+assert rs.error is None, rs.error
+print("SHARDED", sorted(m.docid for m in rs.matches))
 assert not [m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "manticoresearch_tpu", "bench")]
 print("DOCIDS", sorted(m.docid for m in r.matches))
@@ -157,3 +172,4 @@ def test_port_runs_where_jax_cannot_be_imported():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "DOCIDS [1, 2, 4]" in proc.stdout
+    assert "SHARDED [1, 3, 4]" in proc.stdout
