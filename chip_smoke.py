@@ -7,9 +7,10 @@ Run from the repository root, with no arguments:
 
 Phases; each raises on a wrong result or launch count, so the exit code
 is then not 0. Every path is driven through ``SearchIndex.search_batch``
-(``ShardedIndex.search_batch`` in phase 18) on ``device="cuda"`` with the
-launch counters set to 0 just before and read just after, and its results
-are held equal to the same queries on ``device="cpu"``.
+(``ShardedIndex.search_batch`` in phase 18, ``RtIndex.search`` query by
+query in phase 19) on ``device="cuda"`` with the launch counters set to 0
+just before and read just after, and its results are held equal to the
+same queries on ``device="cpu"``.
 
 1. Require CUDA. Print the card (``nvidia-smi`` name and power limit) and
    the torch and CUDA versions.
@@ -139,7 +140,27 @@ are held equal to the same queries on ``device="cpu"``.
     one K1 launch for the merged queries plus one per shard search of the
     fallback, equal to the CPU twin and to one index over the same
     documents (group keys and counts for the GROUP BY).
-Each batch of phases 5-13 and 15-18 prints its warm walls and one profiled
+19. The RT index (after phase 18, at 200k): ``build_corpus_shards(200_000,
+    50_000, 100, 8)`` as an RT table on the card (``rt_from_packed`` on
+    shard 0, ``attach_packed`` on the other 7: 8 disk chunks of 25,000
+    documents) and its CPU twin on a deep copy, in three states. A: no
+    writes; the first 16 queries of phase 3's config-1 and config-2
+    batches, equal to the twin and, with equal-weight runs normalized, to
+    phase 5's single 200k index; K1 timed at one (query, chunk) list and
+    at 16 queries' lists of one chunk. B: 24 seeded commits of 256
+    operations (REPLACEs of disk-chunk documents, DELETEs, an UPDATE of
+    ``year`` in disk chunks and RAM segments, inserts of Zipf-drawn
+    documents), crossing ``MERGE_SEGMENT_LIMIT`` (progressive merges);
+    the 32 queries, 8 config-2 draws under a ``year`` range and 4
+    ``WorkloadGen.config4`` GROUP BY queries. C: FLUSH RAMCHUNK, then
+    OPTIMIZE into one segment; the same queries. In each state: the
+    segments and their device memory, one K1 launch per (query, segment)
+    search whose plan reads packed windows (counted from the plans), no
+    plain decode, warm walls and one profiled query. Then a small RT
+    table with a binlog in a temporary directory: commits, FLUSH, more
+    commits, reloaded (snapshot plus binlog replay) on the card and on the
+    CPU, each equal to the table before the reload.
+Each batch of phases 5-13 and 15-19 prints its warm walls and one profiled
 run (device time, busy share, kernel launches, host waits and copies).
 Every check of a result and every launch count raises on a failure; a
 time does not: where the profiler recorded no launch of a kernel that the
@@ -1418,6 +1439,331 @@ def sharded_phase(gpu: SearchIndex, batches: dict, gpu_results: dict,
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+RT_QUERIES = 16          # of each of phase 3's batches, per state
+RT_COMMITS = 24
+RT_OPS = 256             # operations per commit
+RT_WARM_RUNS = 2
+
+
+class RtBatch:
+    """``search_batch`` over an RT table: one ``RtIndex.search`` per query,
+    in order (the RT search has no batch: each query runs one program per
+    segment, as in the JAX package)."""
+
+    def __init__(self, rt):
+        self.rt = rt
+
+    def search_batch(self, queries: list[SearchQuery]) -> list:
+        return [self.rt.search(q) for q in queries]
+
+
+def rt_launches(rt, queries: list[SearchQuery]) -> tuple[int, int]:
+    """(bit-plane launches, segment-sum launches) of ``rt.search`` over the
+    queries, counted from the plans: each (query, segment) search is one
+    round of device work, so one bit-plane launch where its program reads
+    packed windows; a ranked query plans each segment with the table's
+    summed term stats, as ``search_rt`` does; a grouped one runs each
+    segment's own GROUP BY (one segment-sum launch per float SUM / AVG)."""
+    from manticoresearch_tpu_torch.exec import multi
+    total_docs, df = rt.global_stats()
+    k1 = seg = 0
+    for q in queries:
+        parts = rt.searchable_parts()
+        if q.group_by:
+            if any("distinct" in s.lower() for s in q.select or []):
+                raise AssertionError("rt_launches: COUNT(DISTINCT) takes "
+                                     "the raw-window route")
+            part_q = replace(q, offset=0, limit=q.max_matches)
+            k1 += sum(reads_packed(p, [part_q]) for p in parts)
+            seg += sum(float_aggregates(p, [part_q]) for p in parts)
+            continue
+        part_q = replace(q, offset=0, select=None, limit=(
+            q.offset + q.limit if q.sort else q.max_matches))
+        kw = dict(total_docs_override=total_docs, local_df=df,
+                  emit_factors=False)
+        for p in parts:
+            steps = multi._stats_steps(p, part_q, kw)
+            try:
+                _, cq = next(steps)
+            except StopIteration:      # planning refused it: no device work
+                continue
+            steps.close()
+            k1 += bool(window_kinds(cq.sig))
+    return k1, seg
+
+
+def check_ties(name: str, queries: list, got: list, want: list) -> None:
+    """RT results against one index over the same documents: total_found,
+    and the matches with equal-weight runs normalized as
+    ``tests/test_differential.py`` does (full ties may come in another
+    docid order; a final run clipped by the window keeps its length)."""
+    def runs(matches, limit):
+        out: list = []
+        for m in matches:
+            if out and out[-1][0] == m.weight:
+                out[-1][1].append(m.docid)
+            else:
+                out.append((m.weight, [m.docid]))
+        return [(w, len(ids) if i == len(out) - 1 and len(matches) == limit
+                 else sorted(ids)) for i, (w, ids) in enumerate(out)]
+    for q, g, w in zip(queries, got, want):
+        if (runs(g.matches, q.limit) != runs(w.matches, q.limit)
+                or g.total_found != w.total_found):
+            raise AssertionError(f"{name} {q.match!r}: RT {_summary(g)} != "
+                                 f"one index {_summary(w)}")
+    print(f"{name}: {len(queries)} queries equal to the single 200k index "
+          "(total_found, weights, docids with ties normalized)")
+
+
+def rt_write_stream(rng: np.random.RandomState, rt, next_id: int) -> tuple:
+    """One commit's operations, drawn from the table's state: RT_OPS // 8
+    REPLACEs of documents of the disk chunks, as many DELETEs and as many
+    UPDATEs of ``year`` (each half in the disk chunks, half in the RAM
+    segments where they hold enough), and inserts of new documents for
+    the rest; documents are Zipf-drawn ``t%05d`` tokens, as the corpus.
+    -> (updated ids, the year they get, replaced docs, new docs, deleted
+    ids, next free id)."""
+    width = max(4, len(str(VOCAB - 1)))
+    live = rt.docid_seg
+    k = RT_OPS // 8
+
+    def draw(lo, hi, n):
+        out: list = []
+        for d in rng.randint(lo, max(hi, lo + 1), 4 * n).tolist():
+            if d in live and d not in out:
+                out.append(d)
+        return out
+    chunk, ram = draw(1, N_DOCS + 1, 2 * k), draw(N_DOCS + 1, next_id, k)
+    replaces = chunk[:k]
+    deletes = chunk[k:k + k // 2] + ram[:k // 2]
+    updates = chunk[k + k // 2:2 * k] + ram[k // 2:k]
+
+    def doc(docid):
+        terms = np.minimum(rng.zipf(1.25, int(rng.randint(AVG_LEN // 2,
+                                                          AVG_LEN * 2))) - 1,
+                           VOCAB - 1)
+        return dict(id=docid, content=" ".join(f"t{t:0{width}d}"
+                                               for t in terms.tolist()),
+                    year=2000 + int(rng.randint(0, 25)),
+                    group_id=int(rng.randint(0, 100)))
+    n_new = RT_OPS - len(replaces) - len(deletes) - len(updates)
+    year = 2000 + int(rng.randint(0, 25))
+    return (updates, year, [doc(d) for d in replaces],
+            [doc(next_id + i) for i in range(n_new)], deletes,
+            next_id + n_new)
+
+
+def rt_apply(rt, ops: tuple) -> int:
+    """Apply one commit's operations (an UPDATE, then the REPLACEs, inserts
+    and DELETEs, then COMMIT); -> the rows the commit affected."""
+    updates, year, replaces, inserts, deletes, _ = ops
+    rt.update_attrs(updates, {"year": year})
+    for d in replaces:
+        rt.insert(d, replace=True)
+    for d in inserts:
+        rt.insert(d)
+    rt.delete(deletes)
+    return rt.commit()
+
+
+def rt_state(tag: str, gpu_rt, cpu_rt, queries: list, launches_by_path: dict,
+             t_start: float) -> list:
+    """One state of the RT table: its segments and their device memory,
+    one counted run of the queries (bit-plane launches equal to the count
+    from the plans, segment-sum launches likewise, no plain version),
+    equality with the CPU twin, warm walls and one profiled query."""
+    path = f"rt {tag}"
+    segs = [(s.chunk_id, s.packed.n_docs) for s in gpu_rt.segments]
+    if segs != [(s.chunk_id, s.packed.n_docs) for s in cpu_rt.segments]:
+        raise AssertionError(f"{path}: segments differ from the CPU twin")
+    print(f"{path}: {len(segs)} segments (chunk id, rows) {segs}, "
+          f"{gpu_rt.n_docs} live docs; device memory of the segments "
+          f"{sum(index_bytes(s.search) for s in gpu_rt.segments) / 2**20:.1f}"
+          " MiB")
+    want_k1, want_seg = rt_launches(gpu_rt, queries)
+    res, _ = run_counted(path, RtBatch(gpu_rt), queries, launches_by_path,
+                         want_seg=want_seg, want=want_k1)
+    t0 = time.perf_counter()
+    check_equal(path, queries, res, RtBatch(cpu_rt).search_batch(queries))
+    print(f"{path}: the CPU twin's run took {time.perf_counter() - t0:.1f} s")
+    time_batch(path, RtBatch(gpu_rt), queries, RT_WARM_RUNS, queries[:1])
+    print(f"{since(t_start)} {path} done")
+    return res
+
+
+def rt_binlog_check(t_start: float) -> None:
+    """A small RT table with a binlog in a temporary directory: commits of
+    new documents, a FLUSH (snapshot, binlog reset), commits with REPLACEs
+    and DELETEs and an UPDATE, then a reload on the card (snapshot plus
+    binlog replay) and on the CPU, each equal to the table before the
+    reload. (Nothing is killed before the snapshot: a snapshot keeps no
+    kill-list, in the JAX package as in the port, so a row killed before
+    it would come back on reload.)"""
+    import tempfile
+    from manticoresearch_tpu_torch.index.rt import RtIndex
+    from manticoresearch_tpu_torch.schema import AttrDef, AttrType, Schema
+    schema = Schema(fields=["title", "body"],
+                    attrs=[AttrDef("year", AttrType.UINT),
+                           AttrDef("score", AttrType.FLOAT)])
+    rng = np.random.RandomState(31)
+    words = [f"w{i}" for i in range(40)]
+    qs = [SearchQuery(match=m, limit=20) for m in
+          ("w1", "w2 w3", "w1 | w5", '"w1 w2"')]
+    qs += [SearchQuery(match="w1 | w2", group_by="year", limit=20,
+                       select=["count(*)", "sum(score)"],
+                       sort=[("year", True)]),
+           SearchQuery(match="w3", sort=[("year", False), ("id", True)],
+                       limit=20)]
+    with tempfile.TemporaryDirectory() as d:
+        rt = RtIndex("binlog", schema, data_dir=d, device="cuda")
+        for c in range(12):
+            if c == 6:
+                rt.flush()
+            for i in range(40):
+                docid = 1 + c * 40 + i if c < 6 else int(rng.randint(1, 400))
+                rt.insert(dict(
+                    id=docid, title=" ".join(rng.choice(words, 2)),
+                    body=" ".join(words[int(z) % 40]
+                                  for z in rng.zipf(1.3, 12)),
+                    year=2000 + int(rng.randint(0, 10)),
+                    score=float(rng.randint(0, 64)) / 8), replace=c >= 6)
+            if c >= 6:
+                rt.delete([int(x) for x in rng.randint(1, 400, 5)])
+            rt.commit()
+        rt.update_attrs([int(x) for x in rng.randint(1, 400, 20)],
+                        {"year": 2020})
+        before = RtBatch(rt).search_batch(qs)
+        again = RtIndex("binlog", schema, data_dir=d, device="cuda")
+        twin = RtIndex("binlog", schema, data_dir=d, device="cpu")
+        for name, t in (("cuda", again), ("cpu", twin)):
+            if t.n_docs != rt.n_docs or len(t.segments) != len(rt.segments):
+                raise AssertionError(f"rt binlog reload on {name}: "
+                                     f"{t.n_docs} docs in {len(t.segments)} "
+                                     f"segments, expected {rt.n_docs} in "
+                                     f"{len(rt.segments)}")
+            check_equal(f"rt binlog reload on {name}", qs,
+                        RtBatch(t).search_batch(qs), before)
+        print(f"rt binlog: {rt.n_docs} docs in {len(rt.segments)} segments, "
+              f"binlog {os.path.getsize(os.path.join(d, 'binlog.jsonl'))} "
+              f"bytes after the snapshot")
+    print(f"{since(t_start)} rt binlog done")
+
+
+def rt_phase(packed, batches: dict, gpu_results: dict,
+             launches_by_path: dict, t_start: float) -> None:
+    """Phase 19: an RT table of the 200k corpus in 8 disk chunks on the
+    card, in three states (no writes; after a write stream; after FLUSH
+    RAMCHUNK and OPTIMIZE), each against its CPU twin; then a binlog
+    reload."""
+    import copy
+    from manticoresearch_tpu_torch.exec import multi
+    from manticoresearch_tpu_torch.index.rt import RtIndex, rt_from_packed
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    shards = bench_corpus.build_corpus_shards(N_DOCS, VOCAB, AVG_LEN, SHARDS)
+    twin_shards = copy.deepcopy(shards)
+    print(f"rt: {len(shards)} chunks of {sorted({s.n_docs for s in shards})} "
+          f"docs built (and copied for the CPU twin) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    twins = {}
+    for dev, parts in (("cuda", shards), ("cpu", twin_shards)):
+        t0 = time.perf_counter()
+        rt = rt_from_packed("rt", parts[0], device=dev)
+        for part in parts[1:]:
+            rt.attach_packed(part)
+        torch.cuda.synchronize()
+        twins[dev] = rt
+        print(f"rt on {dev}: rt_from_packed + {len(parts) - 1} attach_packed "
+              f"in {time.perf_counter() - t0:.1f} s")
+    gpu_rt, cpu_rt = twins["cuda"], twins["cpu"]
+    del shards, twin_shards
+    qs = batches["config1"][:RT_QUERIES] + batches["config2"][:RT_QUERIES]
+
+    # state A: 8 disk chunks, no writes; against the single 200k index too
+    res = rt_state("A (8 chunks)", gpu_rt, cpu_rt, qs, launches_by_path,
+                   t_start)
+    for name in ("config1", "config2"):
+        lo = 0 if name == "config1" else RT_QUERIES
+        check_ties(f"rt A {name}", qs[lo:lo + RT_QUERIES],
+                   res[lo:lo + RT_QUERIES], gpu_results[name][:RT_QUERIES])
+    # K1 at one (query, chunk) launch's windows, and at the windows of every
+    # config-2 query of the state on one chunk in one list (the decode a
+    # batched RT search would make per chunk)
+    chunk0 = gpu_rt.segments[0].search
+    data = chunk0.device.data_pytree()
+    total_docs, df = gpu_rt.global_stats()
+    items = []
+    for q in batches["config2"][:RT_QUERIES]:
+        steps = multi._stats_steps(chunk0, replace(q, limit=q.max_matches),
+                                   dict(total_docs_override=total_docs,
+                                        local_df=df, emit_factors=False))
+        _, cq = next(steps)
+        steps.close()
+        items.append(packed_windows(cq.sig, cq.slot_pb, data, cq.runtime))
+    one = max(items, key=lambda it: sum(w.shape[0] for w, _, _ in it))
+    time_decode("rt chunk 0 (25,000 docs), the config-2 query with the "
+                "most blocks", one, iters=50, flush=True)
+    time_decode(f"rt chunk 0 (25,000 docs), {RT_QUERIES} config-2 queries' "
+                "windows in one list", [w for it in items for w in it],
+                iters=50, flush=True)
+    del data, items, one
+
+    # state B: a write stream across MERGE_SEGMENT_LIMIT
+    gen = bench_corpus.WorkloadGen(np.random.RandomState(27), VOCAB, packed)
+    ranged = [replace(q, filters=[AttrFilterDef("year", "range_i", lo=2005,
+                                                hi=2015)])
+              for q in config2_queries(gen, 8)]
+    grouped = gen.config4(4)[1]
+    rng = np.random.RandomState(29)
+    next_id = N_DOCS + 1
+    times = []
+    ram_updates, merged = 0, []
+    for c in range(RT_COMMITS):
+        ops = rt_write_stream(rng, cpu_rt, next_id)
+        next_id = ops[-1]
+        ram_updates += sum(d > N_DOCS for d in ops[0])
+        n_before = len(gpu_rt.segments)
+        t0 = time.perf_counter()
+        n = rt_apply(gpu_rt, ops)
+        torch.cuda.synchronize()
+        times.append(round((time.perf_counter() - t0) * 1e3, 1))
+        if rt_apply(cpu_rt, ops) != n:
+            raise AssertionError("rt write stream: the twins' commits differ")
+        if len(gpu_rt.segments) <= n_before:
+            merged.append(c)
+    if len(merged) < 2 or not ram_updates:
+        raise AssertionError(f"rt write stream: {len(merged)} progressive "
+                             f"merges, {ram_updates} updates in RAM segments")
+    print(f"rt write stream: {RT_COMMITS} commits of {RT_OPS} operations "
+          f"(up to {RT_OPS // 8} each of updated, REPLACEd and deleted "
+          f"documents, the rest inserts; {ram_updates} updates in RAM "
+          f"segments in all), {len(merged)} of them with a progressive "
+          f"merge (MERGE_SEGMENT_LIMIT {RtIndex.MERGE_SEGMENT_LIMIT}: "
+          f"commits {merged}); host time per commit on cuda, the merge "
+          f"included (ms) {times}")
+    qs_b = qs + ranged + grouped
+    rt_state("B (write stream)", gpu_rt, cpu_rt, qs_b, launches_by_path,
+             t_start)
+
+    # state C: FLUSH RAMCHUNK, then OPTIMIZE into one segment
+    for op in ("flush_ramchunk", "optimize"):
+        t0 = time.perf_counter()
+        getattr(gpu_rt, op)()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        getattr(cpu_rt, op)()
+        print(f"rt {op}: {dt:.2f} s on cuda, {time.perf_counter() - t0:.2f} "
+              f"s on cpu; {len(gpu_rt.segments)} segments")
+    rt_state("C (optimized)", gpu_rt, cpu_rt, qs_b, launches_by_path, t_start)
+    del gpu_rt, cpu_rt, twins
+    torch.cuda.empty_cache()
+    rt_binlog_check(t_start)
+    print(f"{since(t_start)} phase 19 done in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def set_sparse_mode(mode: str, *indexes: SearchIndex) -> None:
     """The planner's MT_SPARSE override; cached plans are dropped."""
     os.environ["MT_SPARSE"] = mode
@@ -1572,6 +1918,10 @@ def main() -> int:
     # 18. config 5: the distributed index, 8 shards of the 200k corpus on
     # the card, against the CPU twin and the single 200k index
     sharded_phase(gpu, batches, gpu_results, launches_by_path, t_start)
+
+    # 19. the RT index: 8 disk chunks of the 200k corpus, a write stream,
+    # FLUSH RAMCHUNK and OPTIMIZE, against the CPU twin; a binlog reload
+    rt_phase(packed, batches, gpu_results, launches_by_path, t_start)
     del gpu, cpu, packed, data, batch_items, plans, all_plans
     torch.cuda.empty_cache()
     print(f"{since(t_start)} 200k phases done")

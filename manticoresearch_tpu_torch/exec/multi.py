@@ -15,7 +15,11 @@ MergeAllMatches, searchd.cpp:4816,3990) with the sorter's comparator
 ``_search_with_stats`` is rewritten on the port's ``SearchIndex``: it
 plans with the caller's term statistics and runs the plan through the
 index's own round of device work, so that its windows go through one
-grouped decode. The RT-segment search (``search_rt``) is not ported yet.
+grouped decode. The RT-segment search (``search_rt``, and
+``_search_rt_grouped`` for GROUP BY) fans out over the RT index's
+segments with the summed term statistics, one ``_search_with_stats`` per
+segment, as the JAX package does; ``_load_table_global_idf`` reads a
+table's global-IDF file.
 """
 from __future__ import annotations
 
@@ -501,6 +505,67 @@ def merge_part_results(results, q, schema, agent_mode: bool = False,
     return out
 
 
+def search_rt(rt, q):
+    """Search an RT index: fan out over segments with aggregated term stats
+    (one IDF across all segments), merge."""
+    from .searcher import SearchResult
+
+    parts = rt.searchable_parts()
+    if not parts:
+        return SearchResult([], 0, 0, 0.0, [])
+    from .searcher import late_filters_for, run_late_filtered
+    late = late_filters_for(q, rt.schema)
+    if late:
+        return run_late_filtered(lambda wq: search_rt(rt, wq), q, late)
+    if q.group_by:
+        return _search_rt_grouped(rt, q, parts)
+
+    total_docs, df = rt.global_stats()
+    if q.global_idf:
+        # corpus-wide stats from the table's global-IDF file
+        # (sphinxglobalidf; built by indextool --buildidf)
+        gstats = _load_table_global_idf(rt)
+        if gstats is None:
+            return SearchResult([], 0, 0, 0.0, [], error=(
+                "OPTION global_idf needs a global_idf='<path>' table "
+                "option pointing at an indextool --buildidf file"))
+        df, total_docs = gstats
+    # each part plans/executes with global stats; fetch enough rows to merge
+    from .searcher import _wants_packedfactors
+    pf_sel = [s for s in (q.select or [])
+              if s.lower().replace(" ", "").startswith("packedfactors(")]
+    # implicit relevance sort: fetch the full sorter window per part so
+    # the shared-queue tie emulation sees every candidate the reference's
+    # single max_matches-sized sorter would (multi.py ref_queue_order)
+    part_limit = q.max_matches if not q.sort else q.offset + q.limit
+    part_q = dc_replace(q, offset=0, limit=part_limit,
+                        select=pf_sel or None)
+    results = []
+    for part in parts:
+        cq_kwargs = dict(total_docs_override=total_docs, local_df=df,
+                         emit_factors=_wants_packedfactors(q.select))
+        results.append(_search_with_stats(part, part_q, cq_kwargs))
+    merged = merge_part_results(results, q, rt.schema, rt_heap=True)
+    return merged
+
+
+def _load_table_global_idf(rt):
+    """Load (and cache) the table's global-IDF file, or None."""
+    path = (getattr(rt, "options", None) or {}).get("global_idf")
+    if not path:
+        return None
+    cached = getattr(rt, "_gidf_cache", None)
+    if cached is not None and cached[0] == path:
+        return cached[1]
+    from ..tools.indextool import load_global_idf
+    try:
+        df, total = load_global_idf(path)
+    except (OSError, KeyError, ValueError):
+        return None
+    rt._gidf_cache = (path, (df, total))
+    return df, total
+
+
 def _search_with_stats(index, q, stats_kwargs):
     """``index.search(q)`` with term-stat overrides injected into the plan
     (``total_docs_override`` / ``local_df``), run through the index's own
@@ -538,6 +603,16 @@ def _stats_steps(index, q, stats_kwargs):
         return SearchResult([], 0, 0, 0.0, [], error=str(e))
     rowids, weights, found, _t_dev, pf = yield ("rank", cq)
     return index._finish(q, cq, rowids, weights, found, t0, pf)
+
+
+def _search_rt_grouped(rt, q, parts):
+    """GROUP BY over segments: per-segment group results merged by key —
+    COUNT/SUM/MIN/MAX merge exactly; COUNT(DISTINCT) computes exactly
+    over the raw window (segments are ONE index; the reference shares
+    the uniq sorter across segments)."""
+    return search_grouped_parts(parts, q, rt.schema,
+                                single_part_hint="run OPTIMIZE first",
+                                segments=True)
 
 
 def search_grouped_parts(parts, q, schema, single_part_hint="",

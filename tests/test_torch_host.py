@@ -21,6 +21,12 @@ what the original gives on the same input:
 - ``WorkloadGen``: the same draws from the same seed;
 - ``from_jax_packed``: a copy equal to the JAX index and to the port's own
   build of the same documents, sharing no array with its source.
+- the RT index's host modules: ``merge_packed`` on random segment sets
+  with killed rows under both ``row_order``s, ``save_packed`` by one
+  package and ``load_packed`` by the other (both ways, and the same
+  bytes written), the docstore's bytes and reads, the global-IDF file of
+  ``indextool --buildidf`` and ``check_index``, and ``QueryCache`` (puts,
+  hits, misses, TTL expiry and eviction under a small byte cap).
 
 Tolerance: exact. Everything compared is an integer, string, boolean or a
 float32 array copied or computed by the same numpy expression.
@@ -704,3 +710,141 @@ def test_search_grouped_parts_matches_jax(seed):
                 parts(jax_searcher), jax_searcher.SearchQuery(
                     group_by="g", **kw), schema_j, **mode)
             assert _merged_summary(got) == _merged_summary(want), (kw, mode)
+
+
+# --------------------------------------------------------------------------
+# the RT index's host half: posting merge, storage, docstore, global IDF,
+# result cache
+# --------------------------------------------------------------------------
+def _mixed_segments(mod_builder, mod_schema, mod_def, mod_type, seed):
+    """The mixed corpus cut at random points into 2-4 segments, each built
+    by one package's builder, and a random set of live docids per
+    segment."""
+    fields, kinds, docs = CORPORA["mixed"]
+    rng = np.random.RandomState(seed)
+    cuts = sorted(rng.choice(np.arange(20, len(docs) - 20),
+                             int(rng.randint(1, 4)), replace=False))
+    segs, live = [], []
+    for part in np.split(np.asarray(docs, dtype=object), cuts):
+        b = mod_builder.IndexBuilder(mod_schema(
+            fields=fields, attrs=_attrs(mod_def, mod_type, kinds)))
+        b.add_documents(list(part))
+        segs.append(b.build())
+        ids = [d["id"] for d in part]
+        live.append({d for d in ids if rng.rand() > 0.3})
+    return segs, live
+
+
+@pytest.mark.parametrize("row_order", ["docid", "concat"])
+@pytest.mark.parametrize("seed", range(3))
+def test_merge_packed_matches_jax(seed, row_order):
+    from manticoresearch_tpu.index import merge as jax_merge
+    from manticoresearch_tpu_torch.index import merge as port_merge
+    jsegs, jlive = _mixed_segments(jax_builder, JaxSchema, JaxAttrDef,
+                                   JaxAttrType, seed)
+    psegs, plive = _mixed_segments(builder, Schema, AttrDef, AttrType, seed)
+    assert plive == jlive
+    for live in (jlive, None):
+        want = jax_merge.merge_packed(jsegs, live, row_order=row_order)
+        got = port_merge.merge_packed(psegs, live, row_order=row_order)
+        assert 0 < got.n_docs <= sum(s.n_docs for s in psegs)
+        _assert_packed_equal(got, want)
+
+
+def _stored_as_lists(packed):
+    """A loaded index with its docstore columns read out as lists (each
+    package loads them as its own ``BlockedDocstore`` class)."""
+    return dataclasses.replace(packed, stored_fields={
+        k: list(v) for k, v in packed.stored_fields.items()})
+
+
+def test_save_packed_and_load_packed_cross_packages(tmp_path):
+    from manticoresearch_tpu.index import storage as jax_storage
+    from manticoresearch_tpu_torch.index import storage as port_storage
+    fields, kinds, docs = CORPORA["mixed"]
+    jb = jax_builder.IndexBuilder(JaxSchema(
+        fields=fields, attrs=_attrs(JaxAttrDef, JaxAttrType, kinds)))
+    pb = builder.IndexBuilder(Schema(
+        fields=fields, attrs=_attrs(AttrDef, AttrType, kinds)))
+    jb.add_documents(docs)
+    pb.add_documents(docs)
+    jax_storage.save_packed(jb.build(), str(tmp_path / "by_jax"))
+    port_storage.save_packed(pb.build(), str(tmp_path / "by_port"))
+    for name in ("by_jax", "by_port"):
+        path = str(tmp_path / name)
+        got = _stored_as_lists(port_storage.load_packed(path))
+        want = _stored_as_lists(jax_storage.load_packed(path))
+        assert got.n_docs == len(docs)
+        _assert_packed_equal(got, want)
+    for f in ("header.json", "strings.json", "docstore.bin"):
+        assert (tmp_path / "by_port" / f).read_bytes() == \
+            (tmp_path / "by_jax" / f).read_bytes(), f
+
+
+def test_docstore_matches_jax(tmp_path):
+    from manticoresearch_tpu.index import docstore as jax_docstore
+    from manticoresearch_tpu_torch.index import docstore as port_docstore
+    cols = {"title": _TEXTS * 30,
+            "body": [None, "", "x" * 5000] + _TEXTS * 10}
+    jax_docstore.save_docstore(cols, str(tmp_path / "jax.bin"))
+    port_docstore.save_docstore(cols, str(tmp_path / "port.bin"))
+    assert (tmp_path / "port.bin").read_bytes() == \
+        (tmp_path / "jax.bin").read_bytes()
+    got = port_docstore.load_docstore(str(tmp_path / "jax.bin"))
+    want = jax_docstore.load_docstore(str(tmp_path / "jax.bin"))
+    for k in cols:
+        assert got[k].tolist() == want[k].tolist()
+        assert got[k].compressed_bytes == want[k].compressed_bytes
+        assert [got[k][i] for i in (0, -1, 65, 64)] == \
+            [want[k][i] for i in (0, -1, 65, 64)]
+        assert got[k][3:70:7] == want[k][3:70:7]
+
+
+def test_global_idf_matches_jax(tmp_path):
+    from manticoresearch_tpu.index import storage as jax_storage
+    from manticoresearch_tpu.tools import indextool as jax_indextool
+    from manticoresearch_tpu_torch.tools import indextool as port_indextool
+    jsegs, _ = _mixed_segments(jax_builder, JaxSchema, JaxAttrDef,
+                               JaxAttrType, 5)
+    paths = []
+    for i, s in enumerate(jsegs):
+        paths.append(str(tmp_path / f"seg{i}"))
+        jax_storage.save_packed(s, paths[-1])
+    jax_indextool.build_global_idf(paths, str(tmp_path / "jax.idf"))
+    port_indextool.build_global_idf(paths, str(tmp_path / "port.idf"))
+    for f in ("jax.idf", "port.idf"):
+        got = port_indextool.load_global_idf(str(tmp_path / f))
+        assert got == jax_indextool.load_global_idf(str(tmp_path / f))
+        assert got[1] == sum(s.n_docs for s in jsegs)
+    assert port_indextool.check_index(paths[0]) == \
+        jax_indextool.check_index(paths[0]) == []
+
+
+def test_query_cache_matches_jax(monkeypatch):
+    from manticoresearch_tpu.exec import qcache as jax_qcache
+    from manticoresearch_tpu.exec import searcher as jax_searcher
+    from manticoresearch_tpu_torch.exec import qcache as port_qcache
+    from manticoresearch_tpu_torch.exec import searcher as port_searcher
+
+    def run(qc_mod, sr, clock):
+        now = [100.0]
+        monkeypatch.setattr(qc_mod.time, "monotonic", lambda: now[0])
+        qc = qc_mod.QueryCache(max_bytes=1500, thresh_msec=0, ttl_sec=60)
+        out = []
+        for i in range(12):
+            res = sr.SearchResult(
+                [sr.Match(d, 1000 + d, {"a": d, "s": "x" * i})
+                 for d in range(i % 5)], i % 5, i % 5, 1.0, [],
+                error="bad" if i == 7 else None)
+            key = qc.key("t", i % 3, f"q{i % 4}")
+            qc.put(key, res)
+            now[0] += clock
+            hit = qc.get(qc.key("t", (i + 1) % 3, f"q{(i + 1) % 4}"))
+            out.append(None if hit is None else
+                       [(m.docid, m.weight, m.attrs) for m in hit.matches])
+            out.append(qc.status())
+        qc.clear()
+        return out + [qc.status(), qc.misses]
+    for clock in (1.0, 30.0):
+        assert run(port_qcache, port_searcher, clock) == \
+            run(jax_qcache, jax_searcher, clock)

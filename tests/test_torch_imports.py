@@ -8,8 +8,9 @@ AST scan of every import statement, function bodies included). The JAX
 package's own import chain to jax is still computed from its module-level
 imports, not from a hard-coded list. A subprocess in which importing any
 of those names raises then imports the port and ``chip_smoke``, builds an
-index with the port's builder and runs one query on the CPU, on one index
-and on a two-shard ``ShardedIndex``.
+index with the port's builder and runs one query on the CPU, on one index,
+on a two-shard ``ShardedIndex`` and on an RT table after an UPDATE and
+OPTIMIZE.
 
 Tolerance: exact (import graphs and docids).
 """
@@ -105,8 +106,11 @@ def test_port_imports_nothing_that_reaches_jax():
     reach = _jax_reaching_modules()
     files = _files("manticoresearch_tpu_torch") + [REPO / "chip_smoke.py"]
     assert len(files) >= 20
-    assert REPO / "manticoresearch_tpu_torch" / "parallel" / "sharded.py" \
-        in files
+    port = REPO / "manticoresearch_tpu_torch"
+    assert {port / "parallel" / "sharded.py", port / "index" / "rt.py",
+            port / "index" / "storage.py", port / "index" / "merge.py",
+            port / "index" / "docstore.py", port / "tools" / "indextool.py",
+            port / "exec" / "qcache.py"} <= set(files)
     bad = {}
     for f in files:
         deps = _imports(f, module_level_only=False)
@@ -159,6 +163,18 @@ for part in (["red apple", "blue sky"], ["green apple pie", "apple apple"]):
 rs = ShardedIndex(shards, "cpu").search(SearchQuery(match="apple"))
 assert rs.error is None, rs.error
 print("SHARDED", sorted(m.docid for m in rs.matches))
+
+from manticoresearch_tpu_torch.index.rt import RtIndex
+rt = RtIndex("t", Schema(fields=["title"], attrs=[AttrDef("g", AttrType.UINT)]),
+             device="cpu")
+for i, t in enumerate(["red apple", "blue sky", "apple apple"]):
+    rt.insert(dict(id=i + 1, g=i, title=t))
+    rt.commit()
+rt.update_attrs([3], {"g": 9})
+rt.optimize()
+rr = rt.search(SearchQuery(match="apple"))
+assert rr.error is None, rr.error
+print("RT", sorted((m.docid, m.attrs["g"]) for m in rr.matches))
 assert not [m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "manticoresearch_tpu", "bench")]
 print("DOCIDS", sorted(m.docid for m in r.matches))
@@ -173,3 +189,4 @@ def test_port_runs_where_jax_cannot_be_imported():
     assert proc.returncode == 0, proc.stderr
     assert "DOCIDS [1, 2, 4]" in proc.stdout
     assert "SHARDED [1, 3, 4]" in proc.stdout
+    assert "RT [(1, 0), (3, 9)]" in proc.stdout
