@@ -8,9 +8,10 @@ Run from the repository root, with no arguments:
 Phases; each raises on a wrong result or launch count, so the exit code
 is then not 0. Every path is driven through ``SearchIndex.search_batch``
 (``ShardedIndex.search_batch`` in phase 18, ``RtIndex.search`` query by
-query in phase 19) on ``device="cuda"`` with the launch counters set to 0
-just before and read just after, and its results are held equal to the
-same queries on ``device="cpu"``.
+query in phase 19, ``Session.execute`` statement by statement in phase
+20) on ``device="cuda"`` with the launch counters set to 0 just before
+and read just after, and its results are held equal to the same queries
+on ``device="cpu"``.
 
 1. Require CUDA. Print the card (``nvidia-smi`` name and power limit) and
    the torch and CUDA versions.
@@ -160,7 +161,42 @@ same queries on ``device="cpu"``.
     table with a binlog in a temporary directory: commits, FLUSH, more
     commits, reloaded (snapshot plus binlog replay) on the card and on the
     CPU, each equal to the table before the reload.
-Each batch of phases 5-13 and 15-19 prints its warm walls and one profiled
+20. The SphinxQL session layer (after phase 19, at 200k): a ``Session``
+    on ``Catalog(device="cuda")`` and its twin on
+    ``Catalog(device="cpu")``, every statement to both through
+    ``Session.execute``, every ``QLResult`` without an error (unless one
+    is expected) and equal to the twin's (time fields masked by name:
+    SHOW META ``time``, SHOW STATUS ``uptime``, SHOW THREADS and SHOW
+    PROFILE times), the result cache off. 1: phase 3's 200k corpus saved
+    with ``save_packed`` and loaded by ``IMPORT TABLE docs``; the first 16
+    config-1 and 16 config-2 queries as ``SELECT id, WEIGHT() ... LIMIT
+    10`` with SHOW META, equal to phase 5's ``SearchIndex`` results (ties
+    normalized, total_found from SHOW META), again under ``OPTION
+    ranker=none``; 4 ``WorkloadGen.config4`` draws as GROUP BY with
+    SUM(year) and their AVG(year) twins; FACET, ORDER BY an attribute
+    with an offset, a select-list expression, HAVING, ``ranker=sph04``,
+    CALL KEYWORDS with stats and CALL SNIPPETS over 64 corpus documents.
+    2: 24 transactions (BEGIN; UPDATE of ``year``; REPLACE; INSERT of
+    Zipf-drawn documents; DELETE; COMMIT) of 256 operations, crossing
+    ``MERGE_SEGMENT_LIMIT``; the SELECTs again; FLUSH RAMCHUNK and
+    OPTIMIZE TABLE (one segment); the SELECTs again. 3: a percolate table
+    with 1,000 stored queries from config-1 and config-2 draws (about 10%
+    with a ``year > N`` filter) and one CALL PQ over 128 corpus documents
+    as JSON. 4: the 8 shards of phase 18 by IMPORT TABLE and a
+    distributed table over them: the 32 SELECTs, equal to the twin, with
+    ``docs``'s total_found and, under ``ranker=none``, its rows (each
+    local part ranks with its own term statistics, so ranked weights
+    differ from one table's); then a port ``AgentServer(port=0)`` on a
+    third catalog on the card serving shards 6 and 7, and ``dist2`` over
+    6 local shards and that agent, equal to ``dist`` with ties
+    normalized. In each step: one K1 launch per (query, segment) search
+    whose plan reads packed windows (per stored query searched, in CALL
+    PQ), one segment-sum launch per float SUM / AVG aggregate of a
+    grouped segment search, counted from the plans of every table search
+    made while the card's statement ran, and no plain version; the walls,
+    the share of parse_sql and of the tables' search in them, the device
+    memory of the tables and one profiled SELECT.
+Each batch of phases 5-13 and 15-20 prints its warm walls and one profiled
 run (device time, busy share, kernel launches, host waits and copies).
 Every check of a result and every launch count raises on a failure; a
 time does not: where the profiler recorded no launch of a kernel that the
@@ -1492,20 +1528,26 @@ def rt_launches(rt, queries: list[SearchQuery]) -> tuple[int, int]:
     return k1, seg
 
 
+def tie_runs(rows: list, limit: int) -> list:
+    """(docid, weight) rows as (weight, docids) runs, normalized as
+    ``tests/test_differential.py`` does: full ties may come in another
+    docid order, and a final run clipped by the window keeps only its
+    length."""
+    out: list = []
+    for d, w in rows:
+        if out and out[-1][0] == w:
+            out[-1][1].append(d)
+        else:
+            out.append((w, [d]))
+    return [(w, len(ids) if i == len(out) - 1 and len(rows) == limit
+             else sorted(ids)) for i, (w, ids) in enumerate(out)]
+
+
 def check_ties(name: str, queries: list, got: list, want: list) -> None:
     """RT results against one index over the same documents: total_found,
-    and the matches with equal-weight runs normalized as
-    ``tests/test_differential.py`` does (full ties may come in another
-    docid order; a final run clipped by the window keeps its length)."""
+    and the matches with equal-weight runs normalized (``tie_runs``)."""
     def runs(matches, limit):
-        out: list = []
-        for m in matches:
-            if out and out[-1][0] == m.weight:
-                out[-1][1].append(m.docid)
-            else:
-                out.append((m.weight, [m.docid]))
-        return [(w, len(ids) if i == len(out) - 1 and len(matches) == limit
-                 else sorted(ids)) for i, (w, ids) in enumerate(out)]
+        return tie_runs([(m.docid, m.weight) for m in matches], limit)
     for q, g, w in zip(queries, got, want):
         if (runs(g.matches, q.limit) != runs(w.matches, q.limit)
                 or g.total_found != w.total_found):
@@ -1764,6 +1806,512 @@ def rt_phase(packed, batches: dict, gpu_results: dict,
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+SQL_QUERIES = 16         # of each of phase 3's batches
+SQL_GROUPED = 4          # WorkloadGen.config4 draws (and their AVG twins)
+SQL_PQ_QUERIES = 1000    # stored percolate queries
+SQL_PQ_DOCS = 128        # documents of the CALL PQ
+SQL_SNIPPET_DOCS = 64
+SQL_WARM_RUNS = 2
+# time-dependent rows and columns, masked by name in the twin comparison
+SQL_MASK_ROWS = {("Variable_name", "Value"): "time",     # SHOW META
+                 ("Counter", "Value"): "uptime"}         # SHOW STATUS
+SQL_MASK_COLS = ("Connected", "Work time", "Last job took", "Duration")
+
+
+def sql_masked(r) -> tuple:
+    """A QLResult as a comparable tuple, its time fields masked."""
+    cols = list(r.columns)
+    rows = [tuple(row) for row in r.rows]
+    key = SQL_MASK_ROWS.get(tuple(cols))
+    if key is not None:
+        rows = [(row[0], "<time>") + row[2:] if row and row[0] == key
+                else row for row in rows]
+    idx = [i for i, c in enumerate(cols) if c in SQL_MASK_COLS]
+    if idx:
+        rows = [tuple("<time>" if i in idx else v for i, v in enumerate(row))
+                for row in rows]
+    return cols, rows, r.error, r.warning, r.affected
+
+
+def sql_match(q: SearchQuery) -> str:
+    """A phase 3 query as a SELECT of the session layer."""
+    where = f"MATCH('{q.match}')"
+    for f in q.filters or []:
+        where += f" AND {f.attr} BETWEEN {f.lo} AND {f.hi}"
+    return f"SELECT id, WEIGHT() FROM {{t}} WHERE {where} LIMIT {q.limit}"
+
+
+def sql_grouped(q: SearchQuery, agg: str) -> str:
+    return (f"SELECT group_id, COUNT(*), {agg}(year) FROM docs WHERE "
+            f"MATCH('{q.match}') GROUP BY group_id ORDER BY COUNT(*) DESC "
+            f"LIMIT {q.limit}")
+
+
+def corpus_texts(rows: list[int]) -> list[str]:
+    """The text of corpus documents (row numbers): the token stream of
+    ``bench_corpus.build_corpus`` drawn again from its seed."""
+    rng = np.random.RandomState(42)
+    lens = rng.randint(AVG_LEN // 2, AVG_LEN * 2, N_DOCS)
+    offsets = np.zeros(N_DOCS + 1, np.int64)
+    offsets[1:] = np.cumsum(lens)
+    terms = np.minimum(rng.zipf(1.25, int(offsets[-1])) - 1, VOCAB - 1)
+    width = max(4, len(str(VOCAB - 1)))
+    return [" ".join(f"t{t:0{width}d}" for t in
+                     terms[offsets[r]:offsets[r + 1]].tolist()) for r in rows]
+
+
+class SqlTwins:
+    """One SphinxQL stream to a ``Session`` on a ``Catalog(device="cuda")``
+    and to its twin on a ``Catalog(device="cpu")``. Each statement runs on
+    the card with the launch counters set to 0 just before and read just
+    after, then on the twin; every ``QLResult`` must have no error (unless
+    one is expected) and equal the twin's (columns, rows, error, warning,
+    affected; time fields masked by name). While the card's statement
+    runs, every ``RtIndex.search`` (and, for CALL PQ, every
+    ``SearchIndex.search``) is recorded with its query; after it, the
+    expected launches are counted from their plans (a statement's searches
+    do not change its tables): one bit-plane launch per (query, segment)
+    search whose plan reads packed windows, one segment-sum launch per
+    float SUM / AVG aggregate of a grouped segment search."""
+
+    def __init__(self, gpu_session, cpu_session):
+        from manticoresearch_tpu_torch.index.rt import RtIndex
+        import threading
+        self.gpu, self.cpu = gpu_session, cpu_session
+        self.lock = threading.Lock()
+        self.on = False
+        self.pq = False
+        self.reset_step()
+        self.rt_search = RtIndex.search
+        self.si_search = SearchIndex.search
+        twins = self
+
+        def rt_search(rt, q):
+            if not twins.on:
+                return twins.rt_search(rt, q)
+            t0 = time.perf_counter()
+            res = twins.rt_search(rt, q)
+            with twins.lock:
+                twins.recorded.append((rt, q))
+                twins.search_s += time.perf_counter() - t0
+            return res
+
+        def si_search(idx, q):
+            if not (twins.on and twins.pq):
+                return twins.si_search(idx, q)
+            res = twins.si_search(idx, q)
+            with twins.lock:
+                twins.recorded.append((idx, q))
+            return res
+        RtIndex.search = rt_search
+        SearchIndex.search = si_search
+
+    def close(self) -> None:
+        from manticoresearch_tpu_torch.index.rt import RtIndex
+        RtIndex.search = self.rt_search
+        SearchIndex.search = self.si_search
+
+    def reset_step(self) -> None:
+        self.want_k1 = self.want_seg = self.got_k1 = self.got_seg = 0
+        self.searches = self.statements = 0
+        self.recorded: list = []
+        self.search_s = self.parse_s = self.wall_s = self.cpu_s = 0.0
+
+    def run(self, sql: str, want_error: bool = False, twin: bool = True):
+        """-> the card's results."""
+        from manticoresearch_tpu_torch.query.sphinxql import (
+            parse_sql, split_statements)
+        t0 = time.perf_counter()
+        for piece in split_statements(sql):
+            try:
+                parse_sql(piece)
+            except ValueError:
+                pass
+        self.parse_s += time.perf_counter() - t0
+        self.pq = sql.lstrip().upper().startswith("CALL PQ")
+        torch.cuda.synchronize()
+        ps.LAUNCHES.reset()
+        gb.LAUNCHES.reset()
+        self.recorded = []
+        self.on = True
+        t0 = time.perf_counter()
+        try:
+            got = self.gpu.execute(sql)
+            torch.cuda.synchronize()
+        finally:
+            self.on = False
+        self.last_wall = time.perf_counter() - t0
+        self.wall_s += self.last_wall
+        k1, plain = ps.LAUNCHES.kernel, ps.LAUNCHES.plain
+        seg, seg_plain = gb.LAUNCHES.kernel, gb.LAUNCHES.plain
+        want_k1 = want_seg = 0
+        for table, q in self.recorded:
+            if isinstance(table, SearchIndex):
+                want_k1 += int(reads_packed(table, [q]))
+            else:
+                a, b = rt_launches(table, [q])
+                want_k1, want_seg = want_k1 + a, want_seg + b
+        self.searches += len(self.recorded)
+        self.recorded = []
+        self.want_k1 += want_k1
+        self.want_seg += want_seg
+        self.got_k1 += k1
+        self.got_seg += seg
+        self.statements += 1
+        short = sql if len(sql) < 120 else sql[:117] + "..."
+        if (k1, seg) != (want_k1, want_seg) or plain or seg_plain:
+            raise AssertionError(
+                f"session {short!r}: {k1} bit-plane and {seg} segment-sum "
+                f"launches, {plain} plain decodes and {seg_plain} plain "
+                f"sums; expected {want_k1}, {want_seg}, 0 and 0")
+        for r in got:
+            if (r.error is not None) != want_error:
+                expected = "an" if want_error else "no"
+                raise AssertionError(f"session {short!r}: error {r.error!r}"
+                                     f" (expected {expected} error)")
+        if twin:
+            t0 = time.perf_counter()
+            want = self.cpu.execute(sql)
+            self.cpu_s += time.perf_counter() - t0
+            if [sql_masked(r) for r in got] != [sql_masked(r) for r in want]:
+                raise AssertionError(
+                    f"session {short!r}: cuda {[sql_masked(r) for r in got]}"
+                    f" != cpu {[sql_masked(r) for r in want]}")
+        return got
+
+    def step(self, name: str, launches_by_path: dict, t_start: float) -> None:
+        """Close a step: its launch counts into the kernels line."""
+        launches_by_path[f"session {name}"] = self.got_k1
+        if self.got_seg:
+            SEG_BY_PATH[f"session {name}"] = self.got_seg
+        wall = max(self.wall_s, 1e-9)
+        print(f"session {name}: {self.statements} statements on cuda and "
+              f"cpu, equal; bitplane_decode launches {self.got_k1} "
+              f"(expected {self.want_k1}, from the plans of "
+              f"{self.searches} table searches), segment_sum_ordered "
+              f"launches {self.got_seg} (expected {self.want_seg}), no "
+              f"plain version; cuda wall {self.wall_s:.3f} s, of it "
+              f"parse_sql {self.parse_s / wall:.4f} and the tables' search "
+              f"{self.search_s / wall:.3f} (summed over the fan-out's "
+              f"threads where a distributed table searches its parts); cpu "
+              f"twin {self.cpu_s:.2f} s")
+        print(f"{since(t_start)} session {name} done")
+        self.reset_step()
+
+
+class SqlBatch:
+    """``search_batch`` over SQL text: one ``Session.execute`` per
+    statement (for ``time_batch`` and ``profile_batch``)."""
+
+    def __init__(self, session):
+        self.session = session
+
+    def search_batch(self, sqls: list[str]) -> list:
+        return [self.session.execute(sql) for sql in sqls]
+
+
+def sql_rows(res) -> list:
+    return [(row[0], row[1]) for row in res.rows]
+
+
+def check_sql_ties(name: str, sqls: list, got: list, want: list,
+                   limits: list) -> None:
+    """(docid, weight) rows and total_found against a reference, equal-weight
+    runs normalized (``tie_runs``)."""
+    for sql, g, w, lim in zip(sqls, got, want, limits):
+        if tie_runs(g[0], lim) != tie_runs(w[0], lim) or g[1] != w[1]:
+            raise AssertionError(f"{name} {sql!r}: {g} != {w}")
+    print(f"{name}: {len(sqls)} SELECTs equal (total_found, weights, docids "
+          "with ties normalized)")
+
+
+def sql_select_meta(twins: SqlTwins, sql: str) -> tuple:
+    """A SELECT and its SHOW META on both sessions: -> ((docid, weight)
+    rows, total_found) of the card's."""
+    res = twins.run(sql)
+    meta = dict(twins.run("SHOW META")[0].rows)
+    return sql_rows(res[0]), int(meta["total_found"])
+
+
+def session_phase(packed, batches: dict, gpu_results: dict,
+                  launches_by_path: dict, t_start: float) -> None:
+    """Phase 20: the SphinxQL session layer on the card against its CPU
+    twin: a 200k table by IMPORT TABLE, a write stream, percolate queries,
+    distributed tables of 8 shards with and without an agent."""
+    import asyncio
+    import shutil
+    import tempfile
+    import threading
+    from manticoresearch_tpu_torch.exec.session import Catalog, Session
+    from manticoresearch_tpu_torch.index.storage import save_packed
+    from manticoresearch_tpu_torch.server.agent import AgentServer
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_session_")
+    twins = None
+    loop = None
+    try:
+        t0 = time.perf_counter()
+        save_packed(packed, os.path.join(tmp, "docs"))
+        print(f"session: the 200k index saved in "
+              f"{time.perf_counter() - t0:.1f} s")
+        gcat, ccat = Catalog(device="cuda"), Catalog(device="cpu")
+        twins = SqlTwins(Session(gcat), Session(ccat))
+        for sql in ("SET GLOBAL qcache_max_bytes=0",
+                    f"IMPORT TABLE docs FROM '{os.path.join(tmp, 'docs')}'"):
+            twins.run(sql)
+        torch.cuda.synchronize()
+        docs = gcat.tables["docs"]
+        mib = sum(index_bytes(s.search) for s in docs.segments) / 2**20
+        print(f"session: IMPORT TABLE docs: {docs.n_docs} docs, "
+              f"{len(docs.segments)} segment, device memory {mib:.1f} MiB")
+        twins.step("import table (200k docs)", launches_by_path, t_start)
+
+        # 1. SELECTs on the 200k table
+        qs = batches["config1"][:SQL_QUERIES] + \
+            batches["config2"][:SQL_QUERIES]
+        sqls = [sql_match(q).format(t="docs") for q in qs]
+        none_sqls = [s + " OPTION ranker=none" for s in sqls]
+        limits = [q.limit for q in qs]
+        first = [sql_select_meta(twins, s) for s in sqls]
+        want = [([(m.docid, m.weight) for m in r.matches], r.total_found)
+                for r in gpu_results["config1"][:SQL_QUERIES]
+                + gpu_results["config2"][:SQL_QUERIES]]
+        check_sql_ties("session docs vs the 200k SearchIndex", sqls, first,
+                       want, limits)
+        none_first = [sql_select_meta(twins, s) for s in none_sqls]
+        gen = bench_corpus.WorkloadGen(np.random.RandomState(33), VOCAB,
+                                       packed)
+        c4 = gen.config4(SQL_GROUPED)[1]
+        grouped = [sql_grouped(q, agg) for agg in ("SUM", "AVG")
+                   for q in c4]
+        for sql in grouped:
+            twins.run(sql)
+        t1, t2 = qs[0].match, qs[SQL_QUERIES].match.split()[0]
+        rows = list(range(0, N_DOCS, N_DOCS // SQL_SNIPPET_DOCS))
+        texts = corpus_texts(rows[:SQL_SNIPPET_DOCS])
+        extra = [
+            f"SELECT id, WEIGHT() FROM docs WHERE MATCH('{t1}') LIMIT 5 "
+            "FACET year ORDER BY COUNT(*) DESC, year ASC LIMIT 5",
+            f"SELECT id, year FROM docs WHERE MATCH('{t1} | {t2}') ORDER BY "
+            "year DESC, id ASC LIMIT 20, 10",
+            f"SELECT id, year * 2 + group_id AS e FROM docs WHERE "
+            f"MATCH('{t2}') LIMIT 10",
+            f"SELECT group_id, COUNT(*) c FROM docs WHERE MATCH('{t1}') "
+            "GROUP BY group_id HAVING c > 2 ORDER BY c DESC, group_id ASC "
+            "LIMIT 10",
+            f"SELECT id, WEIGHT() FROM docs WHERE MATCH('{t1} {t2}') "
+            "LIMIT 10 OPTION ranker=sph04",
+            f"CALL KEYWORDS('{t1} {t2} t00001', 'docs', 1)",
+            "CALL SNIPPETS((" + ", ".join(f"'{t}'" for t in texts) +
+            f"), 'docs', '{t1} {t2}', 5 AS around, 200 AS limit)"]
+        for sql in extra:
+            twins.run(sql)
+        warm = []
+        for sql in sqls[:8]:
+            t0 = time.perf_counter()
+            for _ in range(SQL_WARM_RUNS):
+                twins.gpu.execute(sql)
+            torch.cuda.synchronize()
+            warm.append(round((time.perf_counter() - t0) * 1e3
+                              / SQL_WARM_RUNS, 2))
+        print(f"session select: warm wall per SELECT on cuda, the first 8 "
+              f"(ms): {warm}")
+        twins.step("select (200k docs)", launches_by_path, t_start)
+        time_batch("session select (200k docs, 32 SELECTs)",
+                   SqlBatch(twins.gpu), sqls, SQL_WARM_RUNS, sqls[:1])
+
+        # 2. a write stream by SphinxQL
+        rng = np.random.RandomState(35)
+        next_id = N_DOCS + 1
+        commit_ms, merged = [], []
+        cdocs = ccat.tables["docs"]
+        for c in range(RT_COMMITS):
+            (updates, year, replaces, inserts, deletes,
+             next_id) = rt_write_stream(rng, cdocs, next_id)
+
+            def values(ds):
+                return ", ".join(f"({d['id']}, '{d['content']}', "
+                                 f"{d['year']}, {d['group_id']})" for d in ds)
+            cols = "(id, content, year, group_id)"
+            txn = "; ".join([
+                "BEGIN",
+                f"UPDATE docs SET year = {year} WHERE id IN "
+                f"({', '.join(map(str, updates))})",
+                f"REPLACE INTO docs {cols} VALUES {values(replaces)}",
+                f"INSERT INTO docs {cols} VALUES {values(inserts)}",
+                f"DELETE FROM docs WHERE id IN "
+                f"({', '.join(map(str, deletes))})",
+                "COMMIT"])
+            n_before = len(docs.segments)
+            twins.run(txn)
+            commit_ms.append(round(twins.last_wall * 1e3, 1))
+            if len(docs.segments) <= n_before:
+                merged.append(c)
+        if len(merged) < 2:
+            raise AssertionError(f"session write stream: {len(merged)} "
+                                 "progressive merges")
+        print(f"session write stream: {RT_COMMITS} transactions of "
+              f"{RT_OPS} operations (UPDATE, REPLACE, INSERT, DELETE), "
+              f"{len(merged)} with a progressive merge (commits {merged}); "
+              f"{len(docs.segments)} segments, {docs.n_docs} docs; wall per "
+              f"transaction on cuda (ms) {commit_ms}")
+        twins.step("write stream", launches_by_path, t_start)
+        for sql in sqls + grouped:
+            twins.run(sql)
+            twins.run("SHOW META")
+        twins.step("select after writes", launches_by_path, t_start)
+        time_batch("session select after writes", SqlBatch(twins.gpu),
+                   sqls, SQL_WARM_RUNS, sqls[:1])
+        for sql in ("FLUSH RAMCHUNK docs", "OPTIMIZE TABLE docs"):
+            twins.run(sql)
+            print(f"session {sql}: {twins.last_wall:.3f} s on cuda; "
+                  f"{len(docs.segments)} segments")
+        if len(docs.segments) != 1:
+            raise AssertionError("session OPTIMIZE left "
+                                 f"{len(docs.segments)} segments")
+        twins.step("flush ramchunk and optimize", launches_by_path, t_start)
+        for sql in sqls + grouped:
+            twins.run(sql)
+            twins.run("SHOW META")
+        twins.step("select after optimize", launches_by_path, t_start)
+        time_batch("session select after optimize", SqlBatch(twins.gpu),
+                   sqls, SQL_WARM_RUNS, sqls[:1])
+
+        # 3. percolate
+        twins.run("CREATE TABLE pq (content text, year uint) "
+                  "type='percolate'")
+        gen = bench_corpus.WorkloadGen(np.random.RandomState(37), VOCAB,
+                                       packed)
+        pq_rng = np.random.RandomState(39)
+        stored = [q.match for q in config1_queries(gen, SQL_PQ_QUERIES // 2)
+                  + config2_queries(gen, SQL_PQ_QUERIES // 2)]
+        for lo in range(0, len(stored), 250):
+            vals = []
+            for i, m in enumerate(stored[lo:lo + 250], lo + 1):
+                filt = (f"year > {2000 + int(pq_rng.randint(0, 25))}"
+                        if pq_rng.rand() < 0.1 else "")
+                vals.append(f"({i}, '{m}', '{filt}')")
+            twins.run("INSERT INTO pq (id, query, filters) VALUES "
+                      + ", ".join(vals))
+        rows = pq_rng.choice(N_DOCS, SQL_PQ_DOCS, replace=False).tolist()
+        docs_json = [json.dumps({"content": t, "year": 2000 + r % 25})
+                     for t, r in zip(corpus_texts(rows), rows)]
+        pq_sql = ("CALL PQ('pq', (" + ", ".join(f"'{d}'" for d in docs_json)
+                  + "), 1 AS docs_json, 1 AS docs)")
+        searched = twins.searches
+        res = twins.run(pq_sql)
+        print(f"session CALL PQ: {SQL_PQ_QUERIES} stored queries, "
+              f"{SQL_PQ_DOCS} documents: {len(res[0].rows)} queries match, "
+              f"{twins.searches - searched} stored queries searched (the "
+              f"others rejected by their terms); wall "
+              f"{twins.last_wall:.3f} s on cuda")
+        if not res[0].rows:
+            raise AssertionError("session CALL PQ: no stored query matched")
+        twins.step("call pq", launches_by_path, t_start)
+
+        # 4. distributed: 8 local shards, then 6 local shards and an agent
+        t0 = time.perf_counter()
+        shards = bench_corpus.build_corpus_shards(N_DOCS, VOCAB, AVG_LEN,
+                                                  SHARDS)
+        for i, sh in enumerate(shards):
+            save_packed(sh, os.path.join(tmp, f"s{i}"))
+        del shards
+        print(f"session: {SHARDS} shards built and saved in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for i in range(SHARDS):
+            twins.run(f"IMPORT TABLE s{i} FROM '{os.path.join(tmp, f's{i}')}'")
+        twins.run("CREATE TABLE dist type='distributed' " + " ".join(
+            f"local='s{i}'" for i in range(SHARDS)))
+        twins.step("import tables (8 shards)", launches_by_path, t_start)
+        dist_sqls = [sql_match(q).format(t="dist") for q in qs]
+        dist = [sql_select_meta(twins, s) for s in dist_sqls]
+        # each local part ranks with its own term statistics, so ranked
+        # weights differ from one table's; total_found does not, nor do
+        # the rows under ranker=none
+        for sql, d, f in zip(dist_sqls, dist, first):
+            if d[1] != f[1]:
+                raise AssertionError(f"session dist {sql!r}: total_found "
+                                     f"{d[1]} != docs {f[1]}")
+        dist_none = [sql_select_meta(twins, s + " OPTION ranker=none")
+                     for s in dist_sqls]
+        check_sql_ties("session dist vs docs (ranker=none)", dist_sqls,
+                       dist_none, none_first, limits)
+        twins.step("distributed (8 local shards)", launches_by_path, t_start)
+        dist_ms = []
+        for sql in dist_sqls[:8]:
+            t0 = time.perf_counter()
+            twins.gpu.execute(sql)
+            dist_ms.append(round((time.perf_counter() - t0) * 1e3, 2))
+
+        acat = Catalog(device="cuda")
+        asess = Session(acat)
+        for i in (SHARDS - 2, SHARDS - 1):
+            r = asess.execute(f"IMPORT TABLE s{i} FROM "
+                              f"'{os.path.join(tmp, f's{i}')}'")
+            if r[0].error is not None:
+                raise AssertionError(f"agent IMPORT TABLE: {r[0].error}")
+        srv = AgentServer(acat, port=0)
+        loop = asyncio.new_event_loop()
+        started = threading.Event()
+
+        def serve():
+            asyncio.set_event_loop(loop)
+            loop.run_until_complete(srv.start())
+            started.set()
+            loop.run_forever()
+        agent_thread = threading.Thread(target=serve, daemon=True)
+        agent_thread.start()
+        if not started.wait(30):
+            raise AssertionError("agent server did not start")
+        twins.run("CREATE TABLE dist2 type='distributed' " + " ".join(
+            f"local='s{i}'" for i in range(SHARDS - 2)) + " " + " ".join(
+            f"agent='127.0.0.1:{srv.port}:s{i}'"
+            for i in (SHARDS - 2, SHARDS - 1)), twin=False)
+        d2_sqls = [s.replace("FROM dist ", "FROM dist2 ") for s in dist_sqls]
+        d2 = []
+        for sql in d2_sqls:
+            res = twins.run(sql, twin=False)
+            meta = dict(twins.run("SHOW META", twin=False)[0].rows)
+            d2.append((sql_rows(res[0]), int(meta["total_found"])))
+        check_sql_ties("session dist2 (6 local shards and an agent) vs dist",
+                       d2_sqls, d2, dist, limits)
+        twins.step("distributed (6 local shards and an agent)",
+                   launches_by_path, t_start)
+        d2_ms = []
+        for sql in d2_sqls[:8]:
+            t0 = time.perf_counter()
+            twins.gpu.execute(sql)
+            d2_ms.append(round((time.perf_counter() - t0) * 1e3, 2))
+        print(f"session distributed: warm wall per SELECT on cuda, the "
+              f"first 8 (ms): 8 local shards {dist_ms}; 6 local shards and "
+              f"an agent {d2_ms}")
+        mem = sum(index_bytes(s.search) for t in list(gcat.tables.values())
+                  + list(acat.tables.values())
+                  for s in getattr(t, "segments", []))
+        print(f"session: device memory of the card's tables "
+              f"{mem / 2**20:.1f} MiB (allocated "
+              f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB)")
+        time_batch("session dist2", SqlBatch(twins.gpu), d2_sqls[:8], 1,
+                   d2_sqls[:1])
+    finally:
+        if loop is not None:
+            for t in gcat.tables.values():
+                for agent in getattr(t, "agents", []):
+                    for m in agent.mirrors:
+                        for sock in m._pool():
+                            sock.close()
+            asyncio.run_coroutine_threadsafe(srv.stop(), loop).result(30)
+            loop.call_soon_threadsafe(loop.stop)
+            agent_thread.join(30)
+        if twins is not None:
+            twins.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"{since(t_start)} phase 20 done in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def set_sparse_mode(mode: str, *indexes: SearchIndex) -> None:
     """The planner's MT_SPARSE override; cached plans are dropped."""
     os.environ["MT_SPARSE"] = mode
@@ -1922,6 +2470,10 @@ def main() -> int:
     # 19. the RT index: 8 disk chunks of the 200k corpus, a write stream,
     # FLUSH RAMCHUNK and OPTIMIZE, against the CPU twin; a binlog reload
     rt_phase(packed, batches, gpu_results, launches_by_path, t_start)
+
+    # 20. the SphinxQL session layer: a 200k table by IMPORT TABLE, a write
+    # stream, percolate queries, distributed tables, against the CPU twin
+    session_phase(packed, batches, gpu_results, launches_by_path, t_start)
     del gpu, cpu, packed, data, batch_items, plans, all_plans
     torch.cuda.empty_cache()
     print(f"{since(t_start)} 200k phases done")

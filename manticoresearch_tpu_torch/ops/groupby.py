@@ -26,8 +26,9 @@ Exactness against the JAX package:
 """
 from __future__ import annotations
 
+import threading
 from collections.abc import Mapping
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 
 import torch
 
@@ -73,10 +74,21 @@ class SegmentLaunches:
     positions: int = 0   # positions those launches read
     plain: int = 0       # plain-PyTorch sums (CPU tensors)
 
+    _lock: threading.Lock = field(default_factory=threading.Lock,
+                                  repr=False, compare=False)
+
+    def add(self, **counts: int) -> None:
+        """Add to the named counts under a lock: a distributed table's
+        parts and an in-process agent launch from several host threads."""
+        with self._lock:
+            for name, n in counts.items():
+                setattr(self, name, getattr(self, name) + n)
+
     def reset(self) -> None:
-        self.kernel = 0
-        self.positions = 0
-        self.plain = 0
+        with self._lock:
+            self.kernel = 0
+            self.positions = 0
+            self.plain = 0
 
 
 LAUNCHES = SegmentLaunches()
@@ -106,7 +118,7 @@ def segment_sum_ordered(values: torch.Tensor, gid: torch.Tensor,
         if values.device.type != "cpu" or gid.device != values.device:
             raise ValueError(f"no segment sum for {values.device} / "
                              f"{gid.device}")
-        LAUNCHES.plain += 1
+        LAUNCHES.add(plain=1)
         return segment_sum_plain(values, gid, n_out)
     if gid.device != values.device:
         raise ValueError("values and gid must be on one device")
@@ -123,8 +135,7 @@ def segment_sum_ordered(values: torch.Tensor, gid: torch.Tensor,
             values.data_ptr(), gid.data_ptr(), values.shape[0], n_out,
             out.data_ptr(), bounds.data_ptr(), stream)
     _build.check(rc, "segment_sum_ordered")
-    LAUNCHES.kernel += 1
-    LAUNCHES.positions += values.shape[0]
+    LAUNCHES.add(kernel=1, positions=values.shape[0])
     return out
 
 

@@ -21,6 +21,7 @@ decoded, so a run can show which path the search took.
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field as dc_field
 
 import numpy as np
@@ -237,10 +238,21 @@ class LaunchCounts:
     blocks: int = 0   # 128-value blocks those launches decoded
     plain: int = 0    # plain-PyTorch grouped decodes (CPU tensors)
 
+    _lock: threading.Lock = dc_field(default_factory=threading.Lock,
+                                     repr=False, compare=False)
+
+    def add(self, **counts: int) -> None:
+        """Add to the named counts under a lock: a distributed table's
+        parts and an in-process agent launch from several host threads."""
+        with self._lock:
+            for name, n in counts.items():
+                setattr(self, name, getattr(self, name) + n)
+
     def reset(self) -> None:
-        self.kernel = 0
-        self.blocks = 0
-        self.plain = 0
+        with self._lock:
+            self.kernel = 0
+            self.blocks = 0
+            self.plain = 0
 
 
 LAUNCHES = LaunchCounts()
@@ -320,7 +332,7 @@ def decode_grouped(items: list[tuple]) -> tuple[torch.Tensor, np.ndarray]:
     np.cumsum(nbs, out=offsets[1:])
     total = int(offsets[-1])
     if _on_cpu(items[0][0]):
-        LAUNCHES.plain += 1
+        LAUNCHES.add(plain=1)
         parts = [decode_words_ref(w, c) if b is None
                  else decode_rowids_ref(w, b, c).reshape(-1, BLOCK)
                  for w, b, c in items]
@@ -352,8 +364,7 @@ def decode_grouped(items: list[tuple]) -> tuple[torch.Tensor, np.ndarray]:
         rc = lib.mt_bitplane_decode_grouped(
             table_dev.data_ptr(), len(table), total, out.data_ptr(), stream)
     _build.check(rc, "bitplane_decode_grouped")
-    LAUNCHES.kernel += 1
-    LAUNCHES.blocks += total
+    LAUNCHES.add(kernel=1, blocks=total)
     return out, offsets
 
 

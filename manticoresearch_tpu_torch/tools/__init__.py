@@ -1,1 +1,2 @@
-"""Index tools: the port's copy of the JAX package's indextool."""
+"""Index tools: the port's copies of the JAX package's indexer and
+indextool."""

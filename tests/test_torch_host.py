@@ -27,13 +27,24 @@ what the original gives on the same input:
   bytes written), the docstore's bytes and reads, the global-IDF file of
   ``indextool --buildidf`` and ``check_index``, and ``QueryCache`` (puts,
   hits, misses, TTL expiry and eviction under a small byte cap).
+- the session layer's host modules: ``split_statements`` and
+  ``parse_sql`` on every SQL string literal of the session-layer tests
+  (the parsed statements compared field by field, or the same error),
+  ``settings_from_sql_options`` and ``load_config`` (the same settings,
+  or the same error), ``uid_short`` sequences (and the two packages'
+  counters apart), ``jsonquery`` bodies to ``SearchQuery``, and the
+  indexer's output directory on ``tests/test_tools.py``'s corpora and
+  csv / tsv / kill-list twins (every file byte for byte, arrays.npz
+  array by array), ``--rotate`` into a catalog included.
 
 Tolerance: exact. Everything compared is an integer, string, boolean or a
 float32 array copied or computed by the same numpy expression.
 """
+import ast as _ast
 import dataclasses
 import json
 import enum
+from pathlib import Path as _Path
 
 import numpy as np
 import pytest
@@ -61,6 +72,8 @@ from manticoresearch_tpu_torch.schema import AttrDef, AttrType, Schema
 from manticoresearch_tpu_torch.text.dictionary import Dictionary, DictSettings
 from manticoresearch_tpu_torch.text.tokenizer import (Tokenizer,
                                                       TokenizerSettings)
+
+from tests._torch_twin import TwinCatalog, TwinSession
 
 from .test_search import DOCS
 from .test_torch_search import (EXAMPLE_QUERIES, N_RANDOM, WIDE_FIELDS,
@@ -848,3 +861,325 @@ def test_query_cache_matches_jax(monkeypatch):
     for clock in (1.0, 30.0):
         assert run(port_qcache, port_searcher, clock) == \
             run(jax_qcache, jax_searcher, clock)
+
+
+# -- the session layer's host modules ---------------------------------------
+_SQL_VERBS = ("SELECT", "INSERT", "REPLACE", "DELETE", "UPDATE", "CREATE",
+              "DROP", "ALTER", "SHOW", "DESC", "DESCRIBE", "SET", "CALL",
+              "BEGIN", "COMMIT", "ROLLBACK", "START", "TRUNCATE", "OPTIMIZE",
+              "FLUSH", "ATTACH", "IMPORT", "RELOAD", "EXPLAIN", "FACET")
+_SQL_FILES = ("test_sphinxql.py", "test_snippets_pq.py", "test_agents.py",
+              "test_torch_session.py", "test_torch_snippets_pq.py",
+              "test_torch_distributed.py")
+
+
+def _harvest_sql() -> list[tuple[str, str]]:
+    """Every SQL string literal of the session-layer tests: (file, text)."""
+    out, seen = [], set()
+    for name in _SQL_FILES:
+        path = _Path(__file__).parent / name
+        for node in _ast.walk(_ast.parse(path.read_text())):
+            if not (isinstance(node, _ast.Constant)
+                    and isinstance(node.value, str)):
+                continue
+            text = node.value.strip()
+            if text.split(" ", 1)[0].upper().rstrip("(;") in _SQL_VERBS \
+                    and text not in seen:
+                seen.add(text)
+                out.append((name, text))
+    return out
+
+
+_SQL = _harvest_sql()
+
+
+def _parsed(mod, sql):
+    try:
+        return [mod.parse_sql(p) for p in mod.split_statements(sql)], None
+    except mod.SqlParseError as e:
+        return None, str(e)
+
+
+def test_sql_harvest_is_wide():
+    assert len(_SQL) >= 250
+    assert {f for f, _ in _SQL} == set(_SQL_FILES)
+
+
+@pytest.mark.parametrize("i", range(len(_SQL)),
+                         ids=[f"{f}:{i}" for i, (f, _) in enumerate(_SQL)])
+def test_parse_sql_matches_jax(i):
+    from manticoresearch_tpu.query import sphinxql as jax_sql
+    from manticoresearch_tpu_torch.query import sphinxql as port_sql
+    sql = _SQL[i][1]
+    assert jax_sql.split_statements(sql) == port_sql.split_statements(sql)
+    want, werr = _parsed(jax_sql, sql)
+    got, gerr = _parsed(port_sql, sql)
+    assert werr == gerr, sql
+    assert _plain(want) == _plain(got), sql
+
+
+_SQL_OPTIONS = [
+    {},
+    {"morphology": "stem_en", "stopwords": "the a an"},
+    {"morphology": "stem_en, soundex", "min_word_len": "3",
+     "index_exact_words": "1", "min_prefix_len": "2"},
+    {"wordforms": "walks > walk, walked > walk", "html_strip": "1",
+     "html_remove_elements": "script, style", "html_index_attrs":
+     "img=alt"},
+    {"charset_table": "non_cjk, U+00E9->e", "blend_chars": "+, &",
+     "ngram_len": "1", "ngram_chars": "cjk", "min_infix_len": "3"},
+    {"exceptions": "AT&T => att", "ignore_chars": "U+AD",
+     "index_sp": "1", "index_zones": "h1, p", "bigram_index": "all",
+     "phrase_boundary": ".", "dict": "crc"},
+]
+
+
+@pytest.mark.parametrize("opts", range(len(_SQL_OPTIONS)))
+def test_settings_from_sql_options_matches_jax(opts):
+    from manticoresearch_tpu.config import \
+        settings_from_sql_options as jax_settings
+    from manticoresearch_tpu_torch.config import settings_from_sql_options
+    try:
+        want, werr = jax_settings(dict(_SQL_OPTIONS[opts])), None
+    except ValueError as e:
+        want, werr = None, str(e)
+    try:
+        got, gerr = settings_from_sql_options(dict(_SQL_OPTIONS[opts])), None
+    except ValueError as e:
+        got, gerr = None, str(e)
+    assert werr == gerr
+    assert _plain(want) == _plain(got)
+
+
+_CONFIGS = ['''
+[searchd]
+listen_mysql = 19306
+listen_http = 19308
+data_dir = "{d}/data"
+rt_flush_period = 60
+
+[index.products]
+type = "plain"
+source = "{d}/docs.jsonl"
+path = "{d}/idx/products"
+fields = ["title", "body"]
+attrs = {{ price = "float", cat = "uint", tags = "multi", j = "json" }}
+
+[index.products.tokenizer]
+charset_table = "non_cjk"
+min_word_len = 2
+
+[index.rt1]
+type = "rt"
+fields = ["body"]
+attrs = {{ gid = "uint", name = "string" }}
+
+[index.rt1.dict]
+morphology = ["stem_en"]
+stopwords = ["the", "a"]
+''', '''
+[index.x]
+attrs = {{ a = "nosuch" }}
+''', '''
+[searchd]
+listen_mysql = "not a port"
+''']
+
+
+@pytest.mark.parametrize("k", range(len(_CONFIGS)))
+def test_load_config_matches_jax(tmp_path, k):
+    from manticoresearch_tpu.config import ConfigError as JaxConfigError
+    from manticoresearch_tpu.config import load_config as jax_load
+    from manticoresearch_tpu_torch.config import ConfigError, load_config
+    p = tmp_path / "conf.toml"
+    p.write_text(_CONFIGS[k].format(d=tmp_path))
+    try:
+        want, werr = jax_load(str(p)), None
+    except (JaxConfigError, ValueError, TypeError) as e:
+        want, werr = None, (type(e).__name__, str(e))
+    try:
+        got, gerr = load_config(str(p)), None
+    except (ConfigError, ValueError, TypeError) as e:
+        got, gerr = None, (type(e).__name__, str(e))
+    assert werr == gerr
+    assert _plain(want) == _plain(got)
+
+
+def test_uid_short_matches_jax():
+    from manticoresearch_tpu.utils import uid as jax_uid
+    from manticoresearch_tpu_torch.utils import uid
+    for server_id, started in ((0, 100000), (3, 12345), (127, 1 << 20)):
+        jax_uid.setup(server_id, started)
+        uid.setup(server_id, started)
+        assert [jax_uid.uid_short() for _ in range(7)] == \
+            [uid.uid_short() for _ in range(7)]
+    jax_uid.reset()
+    uid.reset()
+    assert jax_uid.uid_short() == uid.uid_short()
+    # the two packages count apart: drawing from one leaves the other
+    jax_uid.setup(0, 100000)
+    uid.setup(0, 100000)
+    jax_uid.uid_short()
+    assert uid.uid_short() == jax_uid.uid_short() - 1
+
+
+_JSON_BODIES = [
+    {"index": "t", "query": {"match": {"content": "red apple"}}},
+    {"index": "t", "query": {"match": {"_all": {"query": "red apple",
+                                                "operator": "and"}}},
+     "limit": 5, "offset": 2},
+    {"index": "t", "query": {"match_phrase": {"content": "quick fox"}}},
+    {"index": "t", "query": {"query_string": "@title (red | blue) -sky"}},
+    {"index": "t", "query": {"match_all": {}}, "sort": [{"price": "desc"},
+                                                         "_score"]},
+    {"index": "t", "query": {"bool": {
+        "must": [{"match": {"content": "apple"}},
+                 {"range": {"price": {"gte": 2, "lt": 10.5}}}],
+        "must_not": [{"equals": {"cat": 3}}],
+        "should": [{"in": {"cat": [1, 2]}}]}}},
+    {"index": "t", "query": {"bool": {"filter": [
+        {"range": {"year": {"gt": 2001, "lte": 2010}}},
+        {"equals": {"name": "bob"}}]}}, "size": 3, "from": 1,
+     "_source": ["id", "price"]},
+    {"index": "t", "query": {"match_all": {}},
+     "aggs": {"by_cat": {"terms": {"field": "cat", "size": 5}}},
+     "max_matches": 50},
+    {"index": "t", "query": {"match": {"content": "x"}},
+     "highlight": {"fields": {"content": {}}, "pre_tags": "<em>",
+                   "post_tags": "</em>"}},
+    {"index": "t", "query": {"nosuch": {}}},
+    {"query": {"match": {"content": "no index"}}},
+    {"index": "t", "query": {"match": {"a": "x", "b": "y"}}},
+]
+
+
+@pytest.mark.parametrize("k", range(len(_JSON_BODIES)))
+def test_jsonquery_matches_jax(k):
+    from manticoresearch_tpu.query import jsonquery as jax_jq
+    from manticoresearch_tpu_torch.query import jsonquery as jq
+    body = json.loads(json.dumps(_JSON_BODIES[k]))
+    try:
+        want, werr = jax_jq.parse_json_query(body), None
+    except (jax_jq.JsonQueryError, jax_jq.JsonSearchError, ValueError,
+            KeyError, TypeError) as e:
+        want, werr = None, (type(e).__name__, str(e))
+    body = json.loads(json.dumps(_JSON_BODIES[k]))
+    try:
+        got, gerr = jq.parse_json_query(body), None
+    except (jq.JsonQueryError, jq.JsonSearchError, ValueError, KeyError,
+            TypeError) as e:
+        got, gerr = None, (type(e).__name__, str(e))
+    assert werr == gerr
+    assert _plain(want) == _plain(got)
+
+
+def _write_sources(d) -> dict:
+    """The corpora of ``tests/test_tools.py`` (jsonl, xmlpipe2, sqlite)
+    and csv / tsv twins of the jsonl one."""
+    import sqlite3
+    docs = [
+        dict(id=1, title="red apple", body="fresh fruit", price=10.5, cat=1),
+        dict(id=2, title="green pear", body="sweet fruit", price=8.25, cat=1),
+        dict(id=3, title="blue car", body="fast vehicle", price=999.0, cat=2),
+    ]
+    (d / "docs.jsonl").write_text("".join(json.dumps(x) + "\n" for x in docs))
+    for ext, sep in (("csv", ","), ("tsv", "\t")):
+        (d / f"docs.{ext}").write_text(
+            sep.join(docs[0]) + "\n" + "".join(
+                sep.join(str(v) for v in x.values()) + "\n" for x in docs))
+    (d / "d.xml").write_text(
+        '<sphinx:docset xmlns:sphinx="s">'
+        '<sphinx:document id="1"><body>green apples</body>'
+        '<price>3</price></sphinx:document>'
+        '<sphinx:document id="2"><body>red apples</body>'
+        '<price>5</price></sphinx:document>'
+        '</sphinx:docset>')
+    con = sqlite3.connect(str(d / "src.db"))
+    con.execute("CREATE TABLE documents (id INTEGER, title TEXT, "
+                "price INTEGER)")
+    con.executemany("INSERT INTO documents VALUES (?, ?, ?)",
+                    [(1, "first row", 10), (2, "second row", 20)])
+    con.commit()
+    con.close()
+    (d / "conf.toml").write_text(_CONFIGS[0].format(d=d))
+    return {
+        "jsonl": ["--source", f"{d}/docs.jsonl", "--fields", "title,body",
+                  "--attrs", "price=float,cat=uint"],
+        "csv": ["--source", f"{d}/docs.csv", "--fields", "title,body",
+                "--attrs", "price=float,cat=uint"],
+        "tsv": ["--source", f"{d}/docs.tsv", "--fields", "title",
+                "--attrs", "cat=uint"],
+        "xmlpipe2": ["--source", f"{d}/d.xml", "--fields", "body",
+                     "--attrs", "price=uint"],
+        "sqlite": ["--source", f"{d}/src.db", "--fields", "title",
+                   "--attrs", "price=uint", "--sql-query",
+                   "SELECT id, title, price FROM documents WHERE price > 5"],
+        "killlist": ["--source", f"{d}/docs.jsonl", "--fields", "title",
+                     "--killlist", "7,9", "--killlist-target", "main:kl"],
+    }
+
+
+def _same_index_dir(a: _Path, b: _Path) -> None:
+    """Every file byte for byte; ``arrays.npz`` array by array (its zip
+    entries carry their write times)."""
+    names = sorted(p.name for p in a.iterdir())
+    assert names == sorted(p.name for p in b.iterdir())
+    for name in names:
+        if name.endswith(".npz"):
+            za, zb = np.load(a / name), np.load(b / name)
+            assert sorted(za.files) == sorted(zb.files)
+            for k in za.files:
+                assert _plain(za[k]) == _plain(zb[k]), (name, k)
+        else:
+            assert (a / name).read_bytes() == (b / name).read_bytes(), name
+
+
+@pytest.mark.parametrize("kind", ["jsonl", "csv", "tsv", "xmlpipe2",
+                                  "sqlite", "killlist", "config"])
+def test_indexer_output_matches_jax(tmp_path, kind):
+    from manticoresearch_tpu.tools.indexer import main as jax_indexer
+    from manticoresearch_tpu_torch.tools.indexer import main as indexer
+    args = _write_sources(tmp_path)
+    for tag, run in (("jax", jax_indexer), ("port", indexer)):
+        if kind == "config":
+            conf = (tmp_path / "conf.toml").read_text().replace(
+                "idx/products", f"idx/{tag}")
+            (tmp_path / f"{tag}.toml").write_text(conf)
+            assert run(["--config", str(tmp_path / f"{tag}.toml"),
+                        "--quiet"]) == 0
+        else:
+            assert run(args[kind] + ["--out", str(tmp_path / "idx" / tag),
+                                     "--quiet"]) == 0
+    _same_index_dir(tmp_path / "idx" / "jax", tmp_path / "idx" / "port")
+
+
+def test_indexer_rotate_into_catalog_matches_jax(tmp_path):
+    """``indexer --rotate`` writes ``<name>.new`` into each package's data
+    directory; RELOAD TABLES swaps it in, and its kill list removes rows
+    of its target table, in both packages alike."""
+    from manticoresearch_tpu.tools.indexer import main as jax_indexer
+    from manticoresearch_tpu_torch.tools.indexer import main as indexer
+    from tests._torch_twin import port_dir
+    args = _write_sources(tmp_path)
+    data = tmp_path / "data"
+    s = TwinSession(TwinCatalog(str(data)))
+    s.execute("CREATE TABLE main (title text, body text, price float, "
+              "cat uint)")
+    s.execute("INSERT INTO main (id, title, body, price, cat) VALUES "
+              "(7, 'old apple', 'x', 1.0, 1), (8, 'old pear', 'y', 2.0, 2), "
+              "(9, 'red apple', 'z', 3.0, 3)")
+    for run, d in ((jax_indexer, str(data)), (indexer, port_dir(str(data)))):
+        assert run(args["jsonl"] + ["--out", f"{d}/delta", "--rotate",
+                                    "--killlist", "7",
+                                    "--killlist-target", "main", "--quiet"]
+                   ) == 0
+    _same_index_dir(data / "delta.new", _Path(port_dir(str(data))) /
+                    "delta.new")
+    for sql in ("RELOAD TABLES", "SHOW TABLES",
+                "SELECT id, title FROM main ORDER BY id ASC",
+                "SELECT id, WEIGHT() FROM delta WHERE MATCH('fruit')",
+                "SELECT id FROM main, delta WHERE MATCH('apple') "
+                "ORDER BY id ASC"):
+        (r,) = s.execute(sql)
+        assert r.error is None, (sql, r.error)
+    s.close()

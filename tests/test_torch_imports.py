@@ -10,7 +10,9 @@ imports, not from a hard-coded list. A subprocess in which importing any
 of those names raises then imports the port and ``chip_smoke``, builds an
 index with the port's builder and runs one query on the CPU, on one index,
 on a two-shard ``ShardedIndex`` and on an RT table after an UPDATE and
-OPTIMIZE.
+OPTIMIZE; then a port ``Session(Catalog(device="cpu"))`` runs CREATE
+TABLE, INSERT, a SELECT with MATCH, CALL PQ on a percolate table and a
+SELECT on a local-only distributed table.
 
 Tolerance: exact (import graphs and docids).
 """
@@ -111,6 +113,14 @@ def test_port_imports_nothing_that_reaches_jax():
             port / "index" / "storage.py", port / "index" / "merge.py",
             port / "index" / "docstore.py", port / "tools" / "indextool.py",
             port / "exec" / "qcache.py"} <= set(files)
+    # the session layer
+    assert {port / "exec" / "session.py", port / "exec" / "snippets.py",
+            port / "exec" / "distributed.py", port / "query" / "sphinxql.py",
+            port / "query" / "jsonquery.py", port / "index" / "percolate.py",
+            port / "index" / "pqfilter.py", port / "config.py",
+            port / "utils" / "uid.py", port / "server" / "agent.py",
+            port / "server" / "__init__.py",
+            port / "tools" / "indexer.py"} <= set(files)
     bad = {}
     for f in files:
         deps = _imports(f, module_level_only=False)
@@ -175,6 +185,29 @@ rt.optimize()
 rr = rt.search(SearchQuery(match="apple"))
 assert rr.error is None, rr.error
 print("RT", sorted((m.docid, m.attrs["g"]) for m in rr.matches))
+from manticoresearch_tpu_torch.exec.session import Catalog, Session
+sess = Session(Catalog(device="cpu"))
+for sql in [
+        "CREATE TABLE t1 (title text, g uint)",
+        "INSERT INTO t1 (id, title, g) VALUES (1, 'red apple', 1), "
+        "(2, 'blue sky', 2), (3, 'apple apple', 3)",
+        "CREATE TABLE t2 (title text, g uint)",
+        "INSERT INTO t2 (id, title, g) VALUES (4, 'green apple pie', 4)",
+        "CREATE TABLE d type='distributed' local='t1' local='t2'",
+        "CREATE TABLE pq (title text, g uint) type='percolate'",
+        "INSERT INTO pq (query) VALUES ('apple'), ('sky')"]:
+    (res,) = sess.execute(sql)
+    assert res.error is None, (sql, res.error)
+(res,) = sess.execute("SELECT id FROM t1 WHERE MATCH('apple')")
+assert res.error is None, res.error
+print("SQL", sorted(row[0] for row in res.rows))
+(res,) = sess.execute("CALL PQ('pq', ('blue sky above', 'an apple'), "
+                      "1 AS docs, 0 AS docs_json)")
+assert res.error is None, res.error
+print("PQ", [row[1] for row in res.rows])
+(res,) = sess.execute("SELECT id FROM d WHERE MATCH('apple')")
+assert res.error is None, res.error
+print("DIST", sorted(row[0] for row in res.rows))
 assert not [m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "manticoresearch_tpu", "bench")]
 print("DOCIDS", sorted(m.docid for m in r.matches))
@@ -190,3 +223,6 @@ def test_port_runs_where_jax_cannot_be_imported():
     assert "DOCIDS [1, 2, 4]" in proc.stdout
     assert "SHARDED [1, 3, 4]" in proc.stdout
     assert "RT [(1, 0), (3, 9)]" in proc.stdout
+    assert "SQL [1, 3]" in proc.stdout
+    assert "PQ ['2', '1']" in proc.stdout
+    assert "DIST [1, 3, 4]" in proc.stdout
