@@ -8,8 +8,8 @@ Run from the repository root, with no arguments:
 Phases; each raises on a wrong result or launch count, so the exit code
 is then not 0. Every path is driven through ``SearchIndex.search_batch``
 (``ShardedIndex.search_batch`` in phase 18, ``RtIndex.search`` query by
-query in phase 19, ``Session.execute`` statement by statement in phase
-20) on ``device="cuda"`` with the launch counters set to 0 just before
+query in phase 19, ``Session.execute`` statement by statement in phases
+20 and 21) on ``device="cuda"`` with the launch counters set to 0 just before
 and read just after, and its results are held equal to the same queries
 on ``device="cpu"``.
 
@@ -98,11 +98,17 @@ on ``device="cpu"``.
     1-member groups, one group of 2^20 members, a run of ineligible
     entries into the sink, no eligible entry, order-dependent values
     (1e8, 1, -1e8 patterns), -0.0, and every call of the 200k and 1M
-    config-4 AVG batches; bit-exact. Timed at each batch's calls (the
-    kernels line takes the 1M batch's): device time (the three launches
-    of one call), the bound (8 bytes per position read, 4 per group
-    written, over 3.35 TB/s), the plain version on the host CPU and
-    ``index_add_`` on the card (the library yardstick, timed here only).
+    config-4 AVG and PACKEDFACTORS() batches, whose ids must keep the
+    kernel's contract (nondecreasing, in [0, n_out)); bit-exact. Timed at
+    each batch's calls (the kernels line takes the 1M config-4 AVG
+    batch's) and at the one-group and groups-then-sink cases: device time
+    (the two launches of one call, seg_prep and seg_walk), both bounds
+    per call (bytes: 8 per position read and 4 per group written over
+    3.35 TB/s; chain: the longest run's non-+0.0 members times
+    ``FADD_CYCLES`` at the SM clock nvidia-smi reports after the timing;
+    the call's bound is the larger), the plain version on the host CPU
+    and ``index_add_`` on the card (the library yardstick, timed here
+    only).
 15. The expression ranker at 200k (after phase 12) and at 1M (after phase
     9e), dense plans: the 64 config-2 queries of ``WorkloadGen.config2``
     (16 at 1M) under ``ranker=expr('sum(lcs*user_weight)*1000+bm25')``,
@@ -196,6 +202,21 @@ on ``device="cpu"``.
     made while the card's statement ran, and no plain version; the walls,
     the share of parse_sql and of the tables' search in them, the device
     memory of the tables and one profiled SELECT.
+21. Replication (after phase 20, at 200k): two nodes on the card
+    (``Catalog(data_dir, device="cuda")``, each with a ``ClusterService``
+    bound to port 0) and a CPU twin cluster of two, driven by the same
+    statements. Node A: IMPORT TABLE of the 200k corpus, CREATE CLUSTER,
+    ALTER CLUSTER ... ADD; node B: JOIN CLUSTER, so the table reaches it
+    by snapshot transfer and ``load_rt_snapshot`` onto its device (timed,
+    and its segments checked on the card). Then 8 write transactions of
+    256 operations (an UPDATE, a DELETE, and REPLACE and INSERT
+    statements of at most 24 rows, through ``cluster:table``) from each
+    node in turn, B's REPLACEs on the ids A's
+    just replaced, each timed until both card nodes have applied it; every
+    node of both clusters at the same sequence number. Then phase 20's 32
+    SELECTs and 8 GROUP BYs, each with SHOW META, on node A and on node B,
+    each statement equal to its CPU twin with the launches counted from
+    the plans (``SqlTwins``), and node A's results equal to node B's.
 Each batch of phases 5-13 and 15-20 prints its warm walls and one profiled
 run (device time, busy share, kernel launches, host waits and copies).
 Every check of a result and every launch count raises on a failure; a
@@ -238,7 +259,10 @@ KERNEL_EVENT = "bitplane_decode_grouped"
 KERNEL_SMEM_ITEMS = 2048   # csrc/bitplane_decode.cu: kSmemItems
 SEG_SOURCE = "manticoresearch_tpu_torch/csrc/segment_sum.cu"
 SEG_REPLACES = "manticoresearch_tpu/ops/groupby.py:145"
-SEG_EVENT = "seg_"         # its three kernels: seg_init, seg_bounds, seg_walk
+SEG_EVENT = "seg_"         # its two kernels: seg_prep_kernel, seg_walk_kernel
+# latency of one dependent __fadd_rn on Hopper, in SM cycles: the ordered
+# sum's chain bound is a run's non-+0.0 members times this
+FADD_CYCLES = 4
 # a sleep kernel ahead of each timed call (about 2 ms at 1.7 GHz): the host
 # enqueues the call before the device reaches it
 SLEEP_CYCLES = 3_000_000
@@ -1231,8 +1255,15 @@ def segment_cases() -> list:
 
 def check_segment_kernel(captured: list) -> float:
     """Kernel vs plain version, bit-exact, on the cases above and on
-    every captured call of the main path; returns the max abs error."""
+    every captured call of the main path (each of which must keep the
+    kernel's contract: ids nondecreasing, in [0, n_out)); returns the max
+    abs error."""
     max_err = 0.0
+    for i, (v, g, n) in enumerate(captured):
+        if g.numel() and not (bool((g[1:] >= g[:-1]).all())
+                              and int(g.min()) >= 0 and int(g.max()) < n):
+            raise AssertionError(f"main-path segment sum {i}: ids not "
+                                 "nondecreasing in [0, n_out)")
     items = [(name, torch.from_numpy(v), torch.from_numpy(g), n)
              for name, v, g, n in segment_cases()]
     items += [(f"main-path call {i}", v.cpu(), g.cpu(), n)
@@ -1246,7 +1277,8 @@ def check_segment_kernel(captured: list) -> float:
             raise AssertionError(f"segment_sum_ordered {name}: kernel != "
                                  f"plain version (max abs err {err})")
     print(f"  segment_sum_ordered: {len(items) - len(captured)} cases and "
-          f"{len(captured)} main-path calls: bit-exact")
+          f"{len(captured)} main-path calls: bit-exact, the main-path ids "
+          "nondecreasing")
     try:
         gb.segment_sum_ordered(torch.zeros(4, device="cuda"),
                                torch.zeros(4, dtype=torch.int64,
@@ -1258,14 +1290,40 @@ def check_segment_kernel(captured: list) -> float:
     return max_err
 
 
+def sm_clocks() -> tuple[float, float]:
+    """(current, max) SM clock in MHz as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    cur, mx = (float(x) for x in out.split(","))
+    return cur, mx
+
+
+def longest_chain(v: torch.Tensor, g: torch.Tensor) -> int:
+    """The largest count of non-+0.0 members of one group (a run: the ids
+    ascend): the ordered sum's chain of dependent adds."""
+    if g.numel() == 0:
+        return 0
+    nz = (v.view(torch.int32) != 0).to(torch.int64)
+    _, counts = torch.unique_consecutive(g, return_counts=True)
+    ends = torch.cumsum(counts, 0) - 1
+    csum = torch.cumsum(nz, 0)[ends]
+    per_run = csum - torch.cat([csum.new_zeros(1), csum[:-1]])
+    return int(per_run.max())
+
+
 def time_segment(name: str, calls: list, iters: int) -> dict:
-    """Per-call times over one batch's captured calls: the kernel's
-    device time (its three launches: the mean of each kernel's launches
-    that torch.profiler recorded, or where it recorded none of one, CUDA
-    events around each run of the calls), the wrapper's call
-    time (CUDA events, in turns library, kernel, kernel, library),
-    ``index_add_`` on the card, the plain version on the host CPU, and
-    the bound."""
+    """Per-call times over a list of calls (a batch's captured calls, or
+    one case): the kernel's device time (its two launches, seg_prep and
+    seg_walk: the mean of each kernel's launches that torch.profiler
+    recorded, or where it recorded none of one, CUDA events around each
+    run of the calls), the wrapper's call time (CUDA events, in turns
+    library, kernel, kernel, library), ``index_add_`` on the card, the
+    plain version on the host CPU, and both bounds per call: bytes (8 per
+    position, 4 per group over 3.35 TB/s) and chain (the longest run's
+    non-+0.0 members times FADD_CYCLES at the SM clock nvidia-smi reports
+    right after the timing); a call's bound is the larger of the two."""
     from torch.autograd import DeviceType
     lib_in = [(v, g.long(), n) for v, g, n in calls]
     cpu_in = [(v.cpu(), g.cpu(), n) for v, g, n in calls]
@@ -1287,25 +1345,25 @@ def time_segment(name: str, calls: list, iters: int) -> dict:
     lib2 = _event_ms(library, iters)
     events, event_ms = timed_calls(kernel, iters,
                                    SLEEP_CYCLES * max(len(calls) // 8, 1))
-    by_kernel: dict = {}
+    clock, clock_max = sm_clocks()
+    # per run of every call: seg_prep once per call with a group, seg_walk
+    # once per call with a group and a position
+    expect = {"prep": sum(n > 0 for _, _, n in calls),
+              "walk": sum(n > 0 and v.numel() > 0 for v, _, n in calls)}
+    by_kernel: dict = {k: [] for k in expect}
     for e in events:
         if e.device_type == DeviceType.CUDA and SEG_EVENT in e.name:
-            by_kernel.setdefault(e.name.split("(")[0], []).append(
-                e.time_range.elapsed_us())
-    # per run of every call: seg_init and seg_walk once per call with a
-    # group, seg_bounds once per call with a position too
-    with_group = sum(n > 0 for _, _, n in calls)
-    expect = {"init": with_group, "walk": with_group,
-              "bounds": sum(n > 0 and v.numel() > 0 for v, _, n in calls)}
-    counts = {k: sum(len(u) for kname, u in by_kernel.items() if k in kname)
-              for k in expect}
+            for k in expect:
+                if f"seg_{k}" in e.name:
+                    by_kernel[k].append(e.time_range.elapsed_us())
+    counts = {k: len(u) for k, u in by_kernel.items()}
     if counts != {k: iters * n for k, n in expect.items()}:
         print(f"  the profiler recorded {counts} segment-sum launches of "
               f"{name}, of {({k: iters * n for k, n in expect.items()})}")
     if all(counts[k] or not expect[k] for k in expect):
-        # mean of the recorded launches of each of the three kernels
-        us = iters * sum(np.mean(u) * expect[k] for k in expect
-                         for kname, u in by_kernel.items() if k in kname)
+        # mean of the recorded launches of each kernel
+        us = iters * sum(np.mean(by_kernel[k]) * expect[k] for k in expect
+                         if expect[k])
     else:
         us = sum(event_ms) * 1e3
         print(f"  {name}: CUDA events around each run give the device time")
@@ -1314,18 +1372,29 @@ def time_segment(name: str, calls: list, iters: int) -> dict:
         gb.segment_sum_plain(v, g, n)
     plain_ms = (time.perf_counter() - t0) * 1e3
     n_calls = len(calls)
-    byts = sum(8 * v.numel() + 4 * n for v, g, n in calls) / n_calls
+    bytes_ms = [(8 * v.numel() + 4 * n) / HBM_BYTES_PER_S * 1e3
+                for v, g, n in calls]
+    chains = [longest_chain(v, g) for v, g, _ in cpu_in]
+    chain_ms = [c * FADD_CYCLES / (clock * 1e6) * 1e3 for c in chains]
+    bound_ms = sum(max(b, c) for b, c in zip(bytes_ms, chain_ms)) / n_calls
+    bound_by = ("operations" if sum(c > b for b, c in zip(bytes_ms, chain_ms))
+                * 2 > n_calls else "bytes")
     r = dict(ms=us / 1e3 / iters / n_calls, call_ms=(k1 + k2) / 2 / n_calls,
              library_ms=(lib1 + lib2) / 2 / n_calls,
-             plain_ms=plain_ms / n_calls,
-             bound_ms=byts / HBM_BYTES_PER_S * 1e3, bytes=byts)
+             plain_ms=plain_ms / n_calls, bound_ms=bound_ms,
+             bound_by=bound_by, bytes_ms=sum(bytes_ms) / n_calls,
+             chain_ms=sum(chain_ms) / n_calls, chain=max(chains),
+             clock=clock)
     positions = [v.numel() for v, _, _ in calls]
     print(f"  segment_sum_ordered {name}: {n_calls} calls of "
           f"{min(positions)}-{max(positions)} positions; per call: device "
-          f"{r['ms'] * 1e3:.2f} us (bound {r['bound_ms'] * 1e3:.2f} us, "
-          f"{r['bytes'] / 1e6:.3f} MB), wrapper {r['call_ms'] * 1e3:.2f} us, "
-          f"index_add_ on the card {r['library_ms'] * 1e3:.2f} us, plain "
-          f"version on the host CPU {r['plain_ms'] * 1e3:.2f} us")
+          f"{r['ms'] * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us (by "
+          f"{bound_by}: bytes {r['bytes_ms'] * 1e3:.2f} us, chain "
+          f"{r['chain_ms'] * 1e3:.2f} us, longest chain {r['chain']} adds "
+          f"at {clock:.0f} MHz of max {clock_max:.0f}), "
+          f"{bound_ms / r['ms']:.3f} of it; wrapper {r['call_ms'] * 1e3:.2f}"
+          f" us, index_add_ on the card {r['library_ms'] * 1e3:.2f} us, "
+          f"plain version on the host CPU {r['plain_ms'] * 1e3:.2f} us")
     return r
 
 
@@ -2312,6 +2381,196 @@ def session_phase(packed, batches: dict, gpu_results: dict,
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+CLUSTER_TXNS = 8         # write transactions from each of the two nodes
+# rows per replicated REPLACE / INSERT statement: a member reads each write
+# set as one line of asyncio's default 64 KiB limit, and a longer line
+# stops its applier (a fault of the JAX package, ROADMAP queue 3); 24 rows
+# of at most 200 corpus tokens stay under 34 KB
+CLUSTER_ROWS = 24
+CLUSTER_DEADLINE = 120.0  # seconds a node may take to apply a sequence
+
+
+class ClusterNode:
+    """A ``Catalog(data_dir, device)`` with a ``ClusterService`` bound to
+    port 0 (its ``port`` read back from the socket) and a ``Session``."""
+
+    def __init__(self, data_dir: str, device: str):
+        from manticoresearch_tpu_torch.exec.session import Catalog, Session
+        from manticoresearch_tpu_torch.server.cluster import ClusterService
+        self.cat = Catalog(data_dir, device=device)
+        self.svc = ClusterService(self.cat, port=0)
+        self.svc.start()
+        self.svc.port = self.svc._server.sockets[0].getsockname()[1]
+        self.cat.cluster_service = self.svc
+        self.sess = Session(self.cat)
+
+    def execute(self, sql: str) -> list:
+        res = self.sess.execute(sql)
+        for r in res:
+            if r.error is not None:
+                raise AssertionError(f"cluster {sql[:100]!r}: {r.error}")
+        return res
+
+    def applied(self, name: str) -> int:
+        return self.cat.clusters[name].applied
+
+
+def wait_applied(nodes: list, name: str, seq: int) -> None:
+    t0 = time.perf_counter()
+    while not all(n.applied(name) >= seq for n in nodes):
+        if time.perf_counter() - t0 > CLUSTER_DEADLINE:
+            raise AssertionError(f"cluster {name}: seq {seq} not applied "
+                                 f"({[n.applied(name) for n in nodes]})")
+        time.sleep(0.002)
+
+
+def cluster_phase(packed, batches: dict, launches_by_path: dict,
+                  t_start: float) -> None:
+    """Phase 21: replication on the card. Two nodes on the card and a CPU
+    twin cluster of two: node A imports the 200k table, CREATE CLUSTER,
+    ALTER CLUSTER ADD; node B joins (the table reaches it by snapshot
+    transfer onto its device); 8 write transactions from each node
+    through ``cluster:table`` (B's REPLACE the ids A's just did); then
+    phase 20's SELECTs and SHOW META on both card nodes, each equal to its
+    CPU twin (launches counted from the plans) and to each other."""
+    import shutil
+    import tempfile
+    from manticoresearch_tpu_torch.index.storage import save_packed
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    nodes: dict = {}
+    twins = None
+    try:
+        save_packed(packed, os.path.join(tmp, "docs"))
+        for dev in ("cuda", "cpu"):
+            nodes[dev] = [ClusterNode(os.path.join(tmp, f"{dev}{i}"), dev)
+                          for i in range(2)]
+        a, b = nodes["cuda"]
+        ca, cb = nodes["cpu"]
+        twins = SqlTwins(a.sess, ca.sess)
+        for n in (b, cb):
+            n.execute("SET GLOBAL qcache_max_bytes=0")
+        for sql in ("SET GLOBAL qcache_max_bytes=0",
+                    f"IMPORT TABLE docs FROM '{os.path.join(tmp, 'docs')}'",
+                    "CREATE CLUSTER c", "ALTER CLUSTER c ADD docs"):
+            twins.run(sql)
+        twins.step("cluster create (node A)", launches_by_path, t_start)
+        sst = {}
+        for dev, (donor, joiner) in nodes.items():
+            t0 = time.perf_counter()
+            joiner.execute(f"JOIN CLUSTER c AT '127.0.0.1:{donor.svc.port}'")
+            torch.cuda.synchronize()
+            sst[dev] = time.perf_counter() - t0
+        jt, dt = b.cat.tables["docs"], a.cat.tables["docs"]
+        on_card = [on_cuda(s.search) for s in jt.segments]
+        if (jt.n_docs != dt.n_docs or len(jt.segments) != len(dt.segments)
+                or not all(on_card)):
+            raise AssertionError(
+                f"cluster JOIN: node B holds {jt.n_docs} docs in "
+                f"{len(jt.segments)} segments (on the card: {on_card}), "
+                f"node A {dt.n_docs} in {len(dt.segments)}")
+        mib = sum(index_bytes(s.search) for s in jt.segments) / 2**20
+        print(f"cluster JOIN (SST of the {jt.n_docs}-doc table, then the "
+              f"log): {sst['cuda']:.2f} s onto the card ({mib:.1f} MiB "
+              f"there), {sst['cpu']:.2f} s onto the CPU twin")
+
+        # writes from both nodes through cluster:table
+        rng = np.random.RandomState(41)
+        next_id = N_DOCS + 1
+        lat_ms, cols = [], "(id, content, year, group_id)"
+
+        def values(ds):
+            return ", ".join(f"({d['id']}, '{d['content']}', {d['year']}, "
+                             f"{d['group_id']})" for d in ds)
+        last_replaces: list = []
+        for t in range(2 * CLUSTER_TXNS):
+            role = t % 2                  # 0: node A, 1: node B
+            (updates, year, replaces, inserts, deletes,
+             next_id) = rt_write_stream(rng, ca.cat.tables["docs"], next_id)
+            if role == 1:                 # the ids A just replaced
+                replaces = [dict(d, year=2000 + (d["year"] + 7) % 25,
+                                 group_id=(d["group_id"] + 1) % 100)
+                            for d in last_replaces]
+            last_replaces = replaces
+            txn = ([f"UPDATE c:docs SET year = {year} WHERE id IN "
+                    f"({', '.join(map(str, updates))})"]
+                   + [f"{verb} INTO c:docs {cols} VALUES "
+                      f"{values(rows[i:i + CLUSTER_ROWS])}"
+                      for verb, rows in (("REPLACE", replaces),
+                                         ("INSERT", inserts))
+                      for i in range(0, len(rows), CLUSTER_ROWS)]
+                   + [f"DELETE FROM c:docs WHERE id IN "
+                      f"({', '.join(map(str, deletes))})"])
+            for dev in ("cuda", "cpu"):
+                node = nodes[dev][role]
+                t0 = time.perf_counter()
+                got = [node.execute(sql)[0].affected for sql in txn]
+                wait_applied(nodes[dev], "c", node.applied("c"))
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    lat_ms.append(round((time.perf_counter() - t0) * 1e3, 1))
+                    want = got
+                elif got != want:
+                    raise AssertionError(f"cluster txn {t}: affected {want}"
+                                         f" on the card, {got} on the CPU")
+        seqs = {dev: [n.applied("c") for n in ns]
+                for dev, ns in nodes.items()}
+        if len(set(seqs["cuda"] + seqs["cpu"])) != 1:
+            raise AssertionError(f"cluster sequence numbers differ: {seqs}")
+        if a.cat.tables["docs"].n_docs != b.cat.tables["docs"].n_docs:
+            raise AssertionError("cluster: node A and B differ in docs")
+        print(f"cluster writes: {2 * CLUSTER_TXNS} transactions of "
+              f"{RT_OPS} operations (an UPDATE, a DELETE and REPLACE / "
+              f"INSERT statements of at most {CLUSTER_ROWS} rows each, "
+              f"alternately from node A and node B; B REPLACEs A's ids), "
+              f"every node at seq "
+              f"{seqs['cuda'][0]}; {len(jt.segments)} segments, "
+              f"{jt.n_docs} docs; replicate-to-applied on both card nodes "
+              f"per transaction (ms) {lat_ms}")
+
+        # phase 20's SELECTs on both card nodes, each against its CPU twin
+        gen = bench_corpus.WorkloadGen(np.random.RandomState(33), VOCAB,
+                                       packed)
+        qs = batches["config1"][:SQL_QUERIES] + \
+            batches["config2"][:SQL_QUERIES]
+        sqls = [sql_match(q).format(t="docs") for q in qs]
+        sqls += [sql_grouped(q, agg) for agg in ("SUM", "AVG")
+                 for q in gen.config4(SQL_GROUPED)[1]]
+        got: dict = {}
+        for tag, (gnode, cnode) in (("A", (a, ca)), ("B", (b, cb))):
+            twins.gpu, twins.cpu = gnode.sess, cnode.sess
+            got[tag] = []
+            walls = []
+            for sql in sqls:
+                got[tag].append([sql_masked(r) for r in twins.run(sql)])
+                walls.append(round(twins.last_wall * 1e3, 1))
+                got[tag].append([sql_masked(r)
+                                 for r in twins.run("SHOW META")])
+            print(f"cluster node {tag}: wall per SELECT on cuda (ms) "
+                  f"{walls}")
+            twins.step(f"cluster select (node {tag})", launches_by_path,
+                       t_start)
+        if got["A"] != got["B"]:
+            diff = next(i for i, (x, y) in enumerate(zip(got["A"], got["B"]))
+                        if x != y)
+            raise AssertionError(f"cluster: node A and node B differ at "
+                                 f"statement {diff}: {got['A'][diff]} != "
+                                 f"{got['B'][diff]}")
+        print(f"cluster: {len(sqls)} SELECTs and their SHOW META equal on "
+              "both card nodes and their CPU twins")
+    finally:
+        if twins is not None:
+            twins.close()
+        for ns in nodes.values():
+            for n in ns:
+                n.svc.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"{since(t_start)} phase 21 done in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def set_sparse_mode(mode: str, *indexes: SearchIndex) -> None:
     """The planner's MT_SPARSE override; cached plans are dropped."""
     os.environ["MT_SPARSE"] = mode
@@ -2326,6 +2585,13 @@ def tree_bytes(tree: dict) -> int:
         for t in (v.values() if isinstance(v, dict) else [v]):
             total += t.numel() * t.element_size()
     return total
+
+
+def on_cuda(idx: SearchIndex) -> bool:
+    """Whether every tensor of an index's data lies on the card."""
+    tree = idx.device.data_pytree()
+    return all(t.is_cuda for v in tree.values()
+               for t in (v.values() if isinstance(v, dict) else [v]))
 
 
 def index_bytes(idx: SearchIndex) -> int:
@@ -2474,6 +2740,10 @@ def main() -> int:
     # 20. the SphinxQL session layer: a 200k table by IMPORT TABLE, a write
     # stream, percolate queries, distributed tables, against the CPU twin
     session_phase(packed, batches, gpu_results, launches_by_path, t_start)
+
+    # 21. replication: two nodes on the card and a CPU twin cluster; the
+    # 200k table by snapshot transfer, writes from both nodes
+    cluster_phase(packed, batches, launches_by_path, t_start)
     del gpu, cpu, packed, data, batch_items, plans, all_plans
     torch.cuda.empty_cache()
     print(f"{since(t_start)} 200k phases done")
@@ -2705,7 +2975,8 @@ def main() -> int:
     print(f"{since(t_start)} 40-field index done")
 
     # 14. the segment-sum kernel: checks, and timing at the config-4 AVG
-    # batches' calls (the kernels line takes the 1M batch's)
+    # and PACKEDFACTORS() batches' calls (the kernels line takes the 1M
+    # config-4 AVG batch's) and at the chain- and sink-bound cases
     seg_err = check_segment_kernel(seg_calls_dense + seg_calls
                                    + seg_calls_pf_dense + seg_calls_pf)
     time_segment("200k config-4 avg batch (dense, full width)",
@@ -2715,6 +2986,11 @@ def main() -> int:
                  seg_calls_pf_dense, iters=5)
     time_segment(f"{tag} PACKEDFACTORS() batch (factor scatters)",
                  seg_calls_pf, iters=5)
+    for name, v, g, n in segment_cases():
+        if name.startswith(("one group", "groups then")):
+            time_segment(name, [(torch.from_numpy(v).cuda(),
+                                 torch.from_numpy(g).cuda(), n)],
+                         iters=3 if name.startswith("one group") else 20)
     print(f"{since(t_start)} segment kernel done")
 
     launches = sum(launches_by_path.values())
@@ -2730,7 +3006,7 @@ def main() -> int:
         "launches": sum(SEG_BY_PATH.values()),
         "launches_by_path": SEG_BY_PATH, "max_abs_err": seg_err,
         "ms": seg["ms"], "plain_ms": seg["plain_ms"],
-        "bound_ms": seg["bound_ms"], "bound_by": "bytes",
+        "bound_ms": seg["bound_ms"], "bound_by": seg["bound_by"],
         "library_ms": seg["library_ms"]}]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,9 @@ manticore.json table registry (searchdconfig.cpp:481).
 The port's copy of ``manticoresearch_tpu/exec/session.py``. ``Catalog``
 takes the ``device`` of every table it builds or loads (the card unless
 the caller asks for "cpu"); a ``Session`` runs on its catalog's device.
-CREATE CLUSTER and JOIN CLUSTER import ``server.cluster``, which the
-port does not carry yet.
+CREATE CLUSTER and JOIN CLUSTER run through the port's ``server.cluster``
+(with ``catalog.cluster_service`` set): a joiner's replicated tables
+land on its catalog's device.
 """
 from __future__ import annotations
 

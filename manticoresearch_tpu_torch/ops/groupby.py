@@ -70,7 +70,7 @@ class GroupSpec:
 # --------------------------------------------------------------------------
 @dataclass
 class SegmentLaunches:
-    kernel: int = 0      # segment_sum_ordered CUDA launches
+    kernel: int = 0      # segment_sum_ordered kernel calls (two launches)
     positions: int = 0   # positions those launches read
     plain: int = 0       # plain-PyTorch sums (CPU tensors)
 
@@ -102,12 +102,28 @@ def segment_sum_plain(values: torch.Tensor, gid: torch.Tensor,
                        device=values.device).index_add_(0, gid.long(), values)
 
 
+# csrc/segment_sum.cu: positions a CTA of its walk owns (kChunk) and the
+# flags one warp load reads (kFlagWindow)
+_SEG_CHUNK = 2048
+_SEG_FLAG_WINDOW = 512
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy whose data starts on a 16-byte boundary (a view
+    with an offset); the kernel copies in 16-byte pieces."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def segment_sum_ordered(values: torch.Tensor, gid: torch.Tensor,
                         n_out: int) -> torch.Tensor:
     """Each group's float32 sum from 0.0, its members added one by one in
     index order (XLA's scatter-add on the CPU): values f32[Z], gid int32[Z]
     with every value in [0, n_out) -> f32[n_out]. CPU tensors take the
-    plain version; CUDA tensors one launch of the kernel, or a raise."""
+    plain version, which takes ids in any order; CUDA tensors one call of
+    the kernel (two launches), or a raise. The kernel's contract: ``gid``
+    is nondecreasing, so that each group is one run (both callers sort by
+    group first: the group-by tail and ``factors.ordered_scatter_add``);
+    ids out of order give wrong sums on the card."""
     if values.dtype != torch.float32 or values.dim() != 1:
         raise ValueError(f"values must be float32 [Z], got {values.dtype} "
                          f"{tuple(values.shape)}")
@@ -122,21 +138,27 @@ def segment_sum_ordered(values: torch.Tensor, gid: torch.Tensor,
         return segment_sum_plain(values, gid, n_out)
     if gid.device != values.device:
         raise ValueError("values and gid must be on one device")
-    if values.shape[0] >= 2**31 or n_out >= 2**31:
+    n = values.shape[0]
+    if n >= 2**31 or n_out >= 2**31:
         raise ValueError("segment sums index with int32")
-    values = values.contiguous()
-    gid = gid.contiguous()
-    out = torch.empty(n_out, dtype=torch.float32, device=values.device)
-    bounds = torch.empty(2 * n_out, dtype=torch.int32, device=values.device)
+    values = _aligned16(values.contiguous())
+    gid = _aligned16(gid.contiguous())
+    # one allocation: the sums, then the walk's per-chunk flags (bytes,
+    # padded to whole warp loads) on a 16-byte boundary
+    head = -(-n_out // 4) * 4
+    n_chunks = -(-n // _SEG_CHUNK)
+    flag_bytes = -(-n_chunks // _SEG_FLAG_WINDOW) * _SEG_FLAG_WINDOW
+    buf = torch.empty(head + flag_bytes // 4, dtype=torch.float32,
+                      device=values.device)
     lib = _build.load_library()
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mt_segment_sum_ordered(
-            values.data_ptr(), gid.data_ptr(), values.shape[0], n_out,
-            out.data_ptr(), bounds.data_ptr(), stream)
+            values.data_ptr(), gid.data_ptr(), n, n_out, buf.data_ptr(),
+            buf.data_ptr() + 4 * head, stream)
     _build.check(rc, "segment_sum_ordered")
-    LAUNCHES.add(kernel=1, positions=values.shape[0])
-    return out
+    LAUNCHES.add(kernel=1, positions=n)
+    return buf[:n_out]
 
 
 # --------------------------------------------------------------------------

@@ -44,6 +44,7 @@ from manticoresearch_tpu_torch.exec.searcher import SearchQuery
 from manticoresearch_tpu_torch.ops import factors as port_factors
 from manticoresearch_tpu_torch.ops import groupby as port_groupby
 
+from ._torch_contracts import sorted_ids_contract  # noqa: F401  (autouse)
 from .test_search import DOCS
 from .test_torch_search import _both_builders, _jax_query, _summary
 from .test_torch_sparse import _mode

@@ -19,6 +19,12 @@ round; and the plain ordered segment sum against XLA's scatter-add.
 Tolerance: exact. Docids, weights, totals and integer aggregates are
 integers; float aggregates must be the same float32 values, which the
 ordered segment sum gives (the same adds in the same order).
+
+Every call the group-by tail makes to ``segment_sum_ordered`` is checked
+against the kernel's contract (``tests/_torch_contracts.py``: group ids
+nondecreasing and in ``[0, n_out)``), and the plain version is held to
+XLA's scatter-add on the six input shapes ``chip_smoke.segment_cases``
+checks the kernel on, at a small size.
 """
 import json
 
@@ -36,6 +42,8 @@ from manticoresearch_tpu_torch.ops import groupby as port_groupby
 from manticoresearch_tpu_torch.ops import packed_store as ps
 from manticoresearch_tpu_torch.query.planner import AttrFilterDef
 
+from ._torch_contracts import check_sorted_ids
+from ._torch_contracts import sorted_ids_contract  # noqa: F401  (autouse)
 from .test_torch_search import _jax_query, _port, _summary
 
 torch.set_num_threads(2)
@@ -329,3 +337,59 @@ def test_segment_sum_plain_matches_xla_scatter(seed):
         torch.from_numpy(vals), torch.from_numpy(gid), n).numpy()
     assert got.view(np.int32).tolist() == want.view(np.int32).tolist()
     assert port_groupby.LAUNCHES.plain == 1
+
+
+def _segment_cases(rng):
+    """The six shapes of ``chip_smoke.segment_cases`` at a small size:
+    (name, values, gid, n_out)."""
+    f32, i32 = np.float32, np.int32
+    n = 1 << 12
+    big = (rng.randn(n) * 10.0 ** rng.randint(-3, 9, n)).astype(f32)
+    runs = np.sort(rng.randint(0, 100, 3000)).astype(i32)
+    sink_n = 7000
+    negz = np.where(rng.rand(2000) < 0.5, f32(-0.0),
+                    rng.randn(2000).astype(f32))
+    negz[:100] = -0.0
+    return [
+        ("1-member groups", rng.randn(1000).astype(f32),
+         np.arange(1000, dtype=i32), 1000),
+        ("one long group", big, np.zeros(n, i32), n),
+        ("groups then a sink run",
+         np.concatenate([rng.randn(3000).astype(f32) * 1000,
+                         np.zeros(sink_n, f32)]),
+         np.concatenate([runs, np.full(sink_n, 9_999, i32)]), 10_000),
+        ("no eligible entry", np.zeros(n, f32), np.full(n, n - 1, i32), n),
+        ("1e8, 1, -1e8, 1 patterns",
+         np.tile(np.asarray([1e8, 1, -1e8, 1], f32), 500),
+         np.repeat(np.arange(100, dtype=i32), 20), 100),
+        ("-0.0 values", negz, np.repeat(np.arange(200, dtype=i32), 10), 200),
+    ]
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_segment_sum_plain_on_kernel_check_shapes(case):
+    """The plain version against jnp's .at[].add on each shape the card's
+    check uses (chip_smoke phase 14), bit-exact; each shape keeps the
+    kernel's contract (nondecreasing ids in [0, n_out))."""
+    name, vals, gid, n_out = _segment_cases(np.random.RandomState(5))[case]
+    check_sorted_ids(torch.from_numpy(gid), n_out)
+    want = np.asarray(jnp.zeros(n_out, jnp.float32).at[jnp.asarray(gid)].add(
+        jnp.asarray(vals)))
+    got = port_groupby.segment_sum_plain(
+        torch.from_numpy(vals), torch.from_numpy(gid), n_out).numpy()
+    assert got.view(np.int32).tolist() == want.view(np.int32).tolist(), name
+
+
+def test_group_by_calls_keep_the_kernel_contract(pair, monkeypatch,
+                                                 sorted_ids_contract):
+    """Float SUM and AVG of every device group-by case, dense and sparse:
+    the tail's segment sums pass nondecreasing ids in [0, n_out), the
+    sink last, and the results still equal JAX's."""
+    jax_idx, idx = pair
+    for mode in ("never", "always"):
+        _mode(monkeypatch, mode, jax_idx, idx)
+        for case in ("all-aggs", "within-attr"):
+            q = _query(DEVICE_CASES[case], "w1 | w2")
+            want = _summary(jax_idx.search(_jax_query(q)))
+            assert _summary(idx.search(q)) == want
+    assert len(sorted_ids_contract.checked) >= 6

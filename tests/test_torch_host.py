@@ -36,6 +36,10 @@ what the original gives on the same input:
   indexer's output directory on ``tests/test_tools.py``'s corpora and
   csv / tsv / kill-list twins (every file byte for byte, arrays.npz
   array by array), ``--rotate`` into a catalog included.
+- the copies made as they are (the replication and cluster servers among
+  them): each module's code equal to its JAX original, statement by
+  statement (the ASTs), except its import statements and its module
+  docstring.
 
 Tolerance: exact. Everything compared is an integer, string, boolean or a
 float32 array copied or computed by the same numpy expression.
@@ -1183,3 +1187,48 @@ def test_indexer_rotate_into_catalog_matches_jax(tmp_path):
         (r,) = s.execute(sql)
         assert r.error is None, (sql, r.error)
     s.close()
+
+
+# port modules copied from the JAX package with only their imports (and
+# their module docstring) changed
+_VERBATIM_COPIES = (
+    "__init__.py", "config.py", "exec/__init__.py", "exec/distributed.py",
+    "exec/qcache.py", "exec/snippets.py", "index/__init__.py",
+    "index/docstore.py", "index/merge.py", "index/pqfilter.py",
+    "ops/__init__.py", "parallel/__init__.py", "plugins.py",
+    "query/__init__.py", "query/ast.py", "query/explain.py",
+    "query/ftparser.py", "query/jsonquery.py", "query/plan.py",
+    "query/planner.py", "query/sphinxql.py", "schema.py",
+    "server/__init__.py", "server/agent.py", "server/cluster.py",
+    "server/repl.py", "text/__init__.py", "text/charset.py",
+    "text/dictionary.py", "text/htmlstrip.py", "text/morphology.py",
+    "tools/__init__.py", "tools/indexer.py", "tools/indextool.py",
+    "utils/__init__.py", "utils/geodist.py", "utils/jsonrender.py",
+    "utils/uid.py")
+
+
+class _DropImports(_ast.NodeTransformer):
+    def visit_Import(self, node):
+        return None
+
+    def visit_ImportFrom(self, node):
+        return None
+
+
+def _code_without_imports(path: _Path) -> str:
+    tree = _ast.parse(path.read_text(), str(path))
+    body = tree.body
+    if (body and isinstance(body[0], _ast.Expr)
+            and isinstance(body[0].value, _ast.Constant)
+            and isinstance(body[0].value.value, str)):
+        body = body[1:]
+    tree.body = body
+    return _ast.dump(_DropImports().visit(tree))
+
+
+@pytest.mark.parametrize("rel", _VERBATIM_COPIES)
+def test_copy_equals_jax_original_but_imports(rel):
+    repo = _Path(__file__).resolve().parent.parent
+    port = repo / "manticoresearch_tpu_torch" / rel
+    jax_src = repo / "manticoresearch_tpu" / rel
+    assert _code_without_imports(port) == _code_without_imports(jax_src)

@@ -12,7 +12,9 @@ index with the port's builder and runs one query on the CPU, on one index,
 on a two-shard ``ShardedIndex`` and on an RT table after an UPDATE and
 OPTIMIZE; then a port ``Session(Catalog(device="cpu"))`` runs CREATE
 TABLE, INSERT, a SELECT with MATCH, CALL PQ on a percolate table and a
-SELECT on a local-only distributed table.
+SELECT on a local-only distributed table; then two port nodes (each a
+``ClusterService`` on port 0) run CREATE / ALTER / JOIN CLUSTER and a
+``cluster:table`` INSERT from the joiner, read back on the creator.
 
 Tolerance: exact (import graphs and docids).
 """
@@ -119,7 +121,8 @@ def test_port_imports_nothing_that_reaches_jax():
             port / "query" / "jsonquery.py", port / "index" / "percolate.py",
             port / "index" / "pqfilter.py", port / "config.py",
             port / "utils" / "uid.py", port / "server" / "agent.py",
-            port / "server" / "__init__.py",
+            port / "server" / "__init__.py", port / "server" / "cluster.py",
+            port / "server" / "repl.py",
             port / "tools" / "indexer.py"} <= set(files)
     bad = {}
     for f in files:
@@ -208,6 +211,37 @@ print("PQ", [row[1] for row in res.rows])
 (res,) = sess.execute("SELECT id FROM d WHERE MATCH('apple')")
 assert res.error is None, res.error
 print("DIST", sorted(row[0] for row in res.rows))
+import shutil, tempfile, time
+from manticoresearch_tpu_torch.server.cluster import ClusterService
+nodes = []
+tmp = tempfile.mkdtemp()
+for i in range(2):
+    cat = Catalog(f"{tmp}/node{i}", device="cpu")
+    svc = ClusterService(cat, port=0)
+    svc.start()
+    svc.port = svc._server.sockets[0].getsockname()[1]
+    cat.cluster_service = svc
+    nodes.append((cat, Session(cat), svc))
+try:
+    (ca, sa, svc_a), (cb, sb, _) = nodes
+    for sql in ["CREATE TABLE ct (title text, g uint)", "CREATE CLUSTER cl",
+                "ALTER CLUSTER cl ADD ct"]:
+        (res,) = sa.execute(sql)
+        assert res.error is None, (sql, res.error)
+    (res,) = sb.execute(f"JOIN CLUSTER cl AT '127.0.0.1:{svc_a.port}'")
+    assert res.error is None, res.error
+    (res,) = sb.execute("INSERT INTO cl:ct (id, title, g) VALUES "
+                        "(5, 'red apple', 1)")
+    assert res.error is None, res.error
+    t0 = time.monotonic()
+    while ca.clusters["cl"].applied < 2 and time.monotonic() - t0 < 15:
+        time.sleep(0.02)
+    (res,) = sa.execute("SELECT id FROM ct WHERE MATCH('apple')")
+    print("CLUSTER", [row[0] for row in res.rows])
+finally:
+    for _, _, svc in nodes:
+        svc.stop()
+    shutil.rmtree(tmp, ignore_errors=True)
 assert not [m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "manticoresearch_tpu", "bench")]
 print("DOCIDS", sorted(m.docid for m in r.matches))
@@ -226,3 +260,4 @@ def test_port_runs_where_jax_cannot_be_imported():
     assert "SQL [1, 3]" in proc.stdout
     assert "PQ ['2', '1']" in proc.stdout
     assert "DIST [1, 3, 4]" in proc.stdout
+    assert "CLUSTER [5]" in proc.stdout

@@ -16,8 +16,12 @@ catalog with a ``data_dir`` is written, closed and reopened: the
 manifest, a snapshot (FLUSH RAMCHUNK) and the binlog after it, for an
 RT, a percolate and a distributed table.
 
-CREATE CLUSTER and JOIN CLUSTER are left out: they import
-``server.cluster``, which the port does not carry yet.
+The cluster statements run too: CREATE / JOIN CLUSTER without a cluster
+service and JOIN without AT (the same errors), then two nodes of each
+package, each a ``ClusterService`` on port 0 (``tests/test_torch_cluster``'s
+``Node``): CREATE CLUSTER, ALTER CLUSTER ... ADD, ``cluster:table``
+writes from both nodes, JOIN CLUSTER (to each package's own first node),
+SHOW STATUS, ALTER CLUSTER ... DROP and DELETE CLUSTER, every result equal.
 
 Tolerance: exact. Weights are integers; float columns come from each
 package's own code on the same float32 values.
@@ -159,3 +163,59 @@ def test_reopen_data_dir(tmp_path, flush):
     for q in _SELECTS:
         s2.execute(q)
     s2.close()
+
+
+def test_cluster_statements_without_a_service():
+    """No cluster service on the catalog: the same errors."""
+    s = TwinSession()
+    for sql in ["CREATE TABLE t (body text)", "CREATE CLUSTER c",
+                "JOIN CLUSTER c AT '127.0.0.1:1'", "DELETE CLUSTER c",
+                "ALTER CLUSTER c ADD t", "INSERT INTO c:t (id, body) "
+                "VALUES (1, 'x')"]:
+        s.execute(sql)
+
+
+def test_cluster_statements_match_jax(tmp_path):
+    """CREATE / JOIN / ALTER / DELETE CLUSTER and cluster:table writes on
+    two nodes of each package: every result equal, the same rows on every
+    node and the same sequence numbers."""
+    from tests.test_torch_cluster import SIDES, Node, converge, run
+    nodes = {side: [] for side in SIDES}
+    try:
+        for side in SIDES:
+            for i in range(2):
+                nodes[side].append(Node(side, str(tmp_path / f"{side}{i}")))
+        steps = [
+            (0, "CREATE TABLE t (body text, gid uint)"),
+            (0, "CREATE CLUSTER c"),
+            (0, "ALTER CLUSTER c ADD t"),
+            (0, "INSERT INTO c:t (id, body, gid) VALUES (1, 'red apple', 1), "
+                "(2, 'green apple', 2)"),
+            (0, "INSERT INTO t (id, body, gid) VALUES (3, 'x', 3)"),
+            (1, "JOIN CLUSTER c AT '{addr}'"),
+            (1, "REPLACE INTO c:t (id, body, gid) VALUES (2, 'blue sky', 5)"),
+            (0, "UPDATE c:t SET gid = 7 WHERE id = 1"),
+            (1, "INSERT INTO c:t (id, body, gid) VALUES (4, 'apple pie', 4)")]
+        for i, sql in steps:
+            run(nodes, i, sql)
+        assert converge(nodes, "c", members=(0, 1)) == [5, 5]
+        for i in (0, 1):
+            for sql in ["SELECT id, gid FROM t ORDER BY id ASC",
+                        "SELECT id FROM t WHERE MATCH('apple') ORDER BY id "
+                        "ASC", "SHOW STATUS LIKE 'cluster_c_%'",
+                        "SHOW TABLES"]:
+                (r,) = run(nodes, i, sql)
+                assert r.error is None, (sql, r.error)
+        (r,) = run(nodes, 0, "SELECT id, gid FROM t ORDER BY id ASC")
+        assert r.rows == [(1, 7), (2, 5), (4, 4)]
+        for i, sql in [(1, "ALTER CLUSTER c DROP t"),
+                       (1, "INSERT INTO t (id, body, gid) VALUES (9, 'z', 9)"),
+                       (0, "DELETE CLUSTER c"),
+                       (0, "DELETE CLUSTER c"),
+                       (0, "INSERT INTO t (id, body, gid) VALUES (9, 'z', 9)"),
+                       (0, "SELECT id FROM t ORDER BY id ASC")]:
+            run(nodes, i, sql)
+    finally:
+        for side in SIDES:
+            for n in nodes[side]:
+                n.svc.stop()
