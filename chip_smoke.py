@@ -9,9 +9,9 @@ Phases; each raises on a wrong result or launch count, so the exit code
 is then not 0. Every path is driven through ``SearchIndex.search_batch``
 (``ShardedIndex.search_batch`` in phase 18, ``RtIndex.search`` query by
 query in phase 19, ``Session.execute`` statement by statement in phases
-20 and 21) on ``device="cuda"`` with the launch counters set to 0 just before
-and read just after, and its results are held equal to the same queries
-on ``device="cpu"``.
+20 and 21, a listener's request in phase 22) on ``device="cuda"`` with
+the launch counters set to 0 just before and read just after, and its
+results are held equal to the same queries on ``device="cpu"``.
 
 1. Require CUDA. Print the card (``nvidia-smi`` name and power limit) and
    the torch and CUDA versions.
@@ -217,6 +217,39 @@ on ``device="cpu"``.
     SELECTs and 8 GROUP BYs, each with SHOW META, on node A and on node B,
     each statement equal to its CPU twin with the launches counted from
     the plans (``SqlTwins``), and node A's results equal to node B's.
+22. The front ends (after phase 21, at 200k). 1: the port's
+    ``MysqlServer``, ``HttpServer`` and ``ApiServer`` on one asyncio loop
+    in a thread over ``Catalog(device="cuda")``, and a twin set over
+    ``Catalog(device="cpu")``, each bound to port 0; every request goes to
+    both (``FrontTwins``), the answers equal with time fields masked by
+    name (SHOW META ``time``, SHOW STATUS ``uptime``, ``took``, the API's
+    ``time_ms``), each card request counted as ``SqlTwins`` counts a
+    statement. The 200k corpus by ``save_packed`` and IMPORT TABLE over
+    MySQL;
+    the first 16 config-1 and 16 config-2 queries as MySQL ``SELECT id,
+    WEIGHT() ... LIMIT 10`` with SHOW META, as HTTP ``/sql`` and
+    ``/json/search`` (``query_string``) and as one SphinxAPI multi-query
+    of 32, each protocol's docids and weights equal to phase 5's (ties
+    normalized), and that multi-query from 4 connections at once (the
+    listener searches from as many worker threads), each answer equal to
+    the one-client answer; 4 ``WorkloadGen.config4`` draws with
+    ``AVG(year)`` over MySQL and ``/sql``; then 4 MySQL transactions of
+    256 operations (REPLACE / INSERT statements of at most 24 rows),
+    ``/json/insert``, ``replace``, ``update``, ``delete`` and a
+    ``/json/bulk`` of 64 documents, and the queries again; a
+    ``/json/search`` with ``highlight`` (on a 24-row table that stores its
+    text); a percolate table with 100 stored
+    queries by ``/json/pq/pq/doc`` and ``/json/pq/pq/search`` over 16
+    documents; SphinxAPI KEYWORDS and STATUS and a MySQL ping. Walls and
+    the tables' search share per protocol, one profiled ``/sql`` request.
+    2: ``python -m manticoresearch_tpu_torch.server.daemon`` as a process
+    on three free ports: IMPORT TABLE over ``/sql`` (the card's free
+    memory must fall by at least 0.9 of the table's device bytes), the 32
+    SELECTs over MySQL and ``/sql`` and the multi-query equal to part 1's
+    card answers, ``tools.replay --host`` of a query log written by a CPU
+    session returns 0, SIGTERM ends it with code 0 within 30 s, a restart
+    on its data directory serves the same answers, and ``tools.replay
+    --data-dir`` on the card returns 0.
 Each batch of phases 5-13 and 15-20 prints its warm walls and one profiled
 run (device time, busy share, kernel launches, host waits and copies).
 Every check of a result and every launch count raises on a failure; a
@@ -231,6 +264,7 @@ from __future__ import annotations
 
 import json
 import os
+import struct
 import subprocess
 import sys
 import time
@@ -1997,7 +2031,31 @@ class SqlTwins:
             except ValueError:
                 pass
         self.parse_s += time.perf_counter() - t0
-        self.pq = sql.lstrip().upper().startswith("CALL PQ")
+        short = sql if len(sql) < 120 else sql[:117] + "..."
+        got = self.counted(f"session {short!r}", lambda: self.gpu.execute(sql),
+                           pq=sql.lstrip().upper().startswith("CALL PQ"))
+        for r in got:
+            if (r.error is not None) != want_error:
+                expected = "an" if want_error else "no"
+                raise AssertionError(f"session {short!r}: error {r.error!r}"
+                                     f" (expected {expected} error)")
+        if twin:
+            t0 = time.perf_counter()
+            want = self.cpu.execute(sql)
+            self.cpu_s += time.perf_counter() - t0
+            if [sql_masked(r) for r in got] != [sql_masked(r) for r in want]:
+                raise AssertionError(
+                    f"session {short!r}: cuda {[sql_masked(r) for r in got]}"
+                    f" != cpu {[sql_masked(r) for r in want]}")
+        return got
+
+    def counted(self, label: str, fn, pq: bool = False):
+        """Run ``fn`` (the card's side of one statement or request) with the
+        launch counters set to 0 just before and read just after; the
+        launches must equal the count from the plans of the table searches
+        it made, on any thread, and no plain version may run. -> what
+        ``fn`` returns."""
+        self.pq = pq
         torch.cuda.synchronize()
         ps.LAUNCHES.reset()
         gb.LAUNCHES.reset()
@@ -2005,7 +2063,7 @@ class SqlTwins:
         self.on = True
         t0 = time.perf_counter()
         try:
-            got = self.gpu.execute(sql)
+            got = fn()
             torch.cuda.synchronize()
         finally:
             self.on = False
@@ -2027,25 +2085,11 @@ class SqlTwins:
         self.got_k1 += k1
         self.got_seg += seg
         self.statements += 1
-        short = sql if len(sql) < 120 else sql[:117] + "..."
         if (k1, seg) != (want_k1, want_seg) or plain or seg_plain:
             raise AssertionError(
-                f"session {short!r}: {k1} bit-plane and {seg} segment-sum "
+                f"{label}: {k1} bit-plane and {seg} segment-sum "
                 f"launches, {plain} plain decodes and {seg_plain} plain "
                 f"sums; expected {want_k1}, {want_seg}, 0 and 0")
-        for r in got:
-            if (r.error is not None) != want_error:
-                expected = "an" if want_error else "no"
-                raise AssertionError(f"session {short!r}: error {r.error!r}"
-                                     f" (expected {expected} error)")
-        if twin:
-            t0 = time.perf_counter()
-            want = self.cpu.execute(sql)
-            self.cpu_s += time.perf_counter() - t0
-            if [sql_masked(r) for r in got] != [sql_masked(r) for r in want]:
-                raise AssertionError(
-                    f"session {short!r}: cuda {[sql_masked(r) for r in got]}"
-                    f" != cpu {[sql_masked(r) for r in want]}")
         return got
 
     def step(self, name: str, launches_by_path: dict, t_start: float) -> None:
@@ -2571,6 +2615,917 @@ def cluster_phase(packed, batches: dict, launches_by_path: dict,
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+FRONT_QUERIES = 16       # of each of phase 3's batches
+FRONT_GROUPED = 4        # WorkloadGen.config4 draws, with AVG(year)
+FRONT_TXNS = 4           # MySQL write transactions of RT_OPS operations
+FRONT_ROWS = 24          # rows per REPLACE / INSERT statement
+FRONT_JSON_DOCS = 4      # documents of each /json/insert, replace, ...
+FRONT_BULK = 64          # documents of the /json/bulk
+FRONT_PQ_QUERIES = 100   # stored percolate queries
+FRONT_PQ_DOCS = 16       # documents of the percolate search
+FRONT_WARM_RUNS = 2
+FRONT_API_CLIENTS = 4    # SphinxAPI connections searching at once
+# extra arguments of the daemon process and of ``tools.replay``: none on
+# the card (their default device is "cuda"); a rehearsal on the CPU passes
+# ["--device", "cpu"]
+FRONT_DEVICE_ARGS: list = []
+FRONT_DAEMON_START_S = 180.0   # seconds a daemon may take to listen
+FRONT_DAEMON_STOP_S = 30.0     # seconds it may take to exit on SIGTERM
+API_VER_SEARCH, API_VER_KEYWORDS, API_VER_STATUS = 0x121, 0x101, 0x101
+API_BIGINT, API_STRING, API_MVA = 6, 7, 0x40000001
+FRONT_MASK = "<time>"
+
+
+class WireMysql:
+    """Just enough of a MySQL text-protocol client: the protocol-41 login
+    (no TLS, no compression), COM_QUERY with one result, COM_PING."""
+
+    def __init__(self, port: int):
+        import socket
+        self.sock = socket.create_connection(("127.0.0.1", port),
+                                             timeout=600)
+        self.seq = 0
+        if self._read()[0] != 0x0A:
+            raise AssertionError("mysql: not a protocol-10 greeting")
+        self._send(struct.pack("<II", 0x0200, 1 << 24) + b"\x21"
+                   + b"\x00" * 23 + b"root\x00\x00")
+        if self._read()[0] != 0x00:
+            raise AssertionError("mysql: login refused")
+
+    def _recv(self, n: int) -> bytes:
+        out = b""
+        while len(out) < n:
+            chunk = self.sock.recv(n - len(out))
+            if not chunk:
+                raise ConnectionError("mysql: connection closed")
+            out += chunk
+        return out
+
+    def _read(self) -> bytes:
+        head = self._recv(4)
+        self.seq = head[3]
+        return self._recv(head[0] | head[1] << 8 | head[2] << 16)
+
+    def _send(self, payload: bytes) -> None:
+        self.seq = (self.seq + 1) % 256
+        self.sock.sendall(struct.pack("<I", len(payload))[:3]
+                          + bytes([self.seq]) + payload)
+
+    @staticmethod
+    def _lenenc(data: bytes, pos: int) -> tuple:
+        b = data[pos]
+        if b < 251:
+            return b, pos + 1
+        if b == 0xFC:
+            return struct.unpack_from("<H", data, pos + 1)[0], pos + 3
+        if b == 0xFD:
+            return data[pos + 1] | data[pos + 2] << 8 | data[pos + 3] << 16, \
+                pos + 4
+        return struct.unpack_from("<Q", data, pos + 1)[0], pos + 9
+
+    def command(self, cmd: int, arg: bytes = b"") -> bytes:
+        self.seq = 255
+        self._send(bytes([cmd]) + arg)
+        return self._read()
+
+    def query(self, sql: str) -> dict:
+        """-> {"error": msg}, {"affected": n} or {"columns", "rows"}."""
+        first = self.command(0x03, sql.encode())
+        if first[0] == 0xFF:
+            return {"error": first[9:].decode()}
+        if first[0] == 0x00:
+            return {"affected": self._lenenc(first, 1)[0]}
+        ncols = self._lenenc(first, 0)[0]
+        cols = []
+        for _ in range(ncols):
+            pkt, pos, vals = self._read(), 0, []
+            for _f in range(6):
+                n, pos = self._lenenc(pkt, pos)
+                vals.append(pkt[pos:pos + n])
+                pos += n
+            cols.append(vals[4].decode())
+        if self._read()[0] != 0xFE:
+            raise AssertionError("mysql: no EOF after the columns")
+        rows = []
+        while True:
+            pkt = self._read()
+            if pkt[0] == 0xFE and len(pkt) < 9:
+                if pkt[3] & 0x08:
+                    raise AssertionError("mysql: an unexpected second "
+                                         "result set")
+                return {"columns": cols, "rows": rows}
+            pos, row = 0, []
+            for _c in range(ncols):
+                if pkt[pos] == 0xFB:
+                    row.append(None)
+                    pos += 1
+                else:
+                    n, pos = self._lenenc(pkt, pos)
+                    row.append(pkt[pos:pos + n].decode())
+                    pos += n
+            rows.append(row)
+
+    def close(self) -> None:
+        try:
+            self.seq = 255
+            self._send(b"\x01")
+        finally:
+            self.sock.close()
+
+
+def mysql_masked(out: dict) -> dict:
+    """A ``WireMysql.query`` answer with SHOW META's ``time`` and SHOW
+    STATUS's ``uptime`` masked."""
+    if "rows" not in out:
+        return out
+    key = SQL_MASK_ROWS.get(tuple(out["columns"]))
+    return dict(out, rows=[[r[0], FRONT_MASK] + r[2:]
+                           if key and r and r[0] == key else r
+                           for r in out["rows"]])
+
+
+class WireApi:
+    """A SphinxAPI client: the version exchange, then requests of (WORD
+    command, WORD version, DWORD length, body) on one connection."""
+
+    def __init__(self, port: int):
+        import socket
+        self.sock = socket.create_connection(("127.0.0.1", port),
+                                             timeout=600)
+        self._recv(4)
+        self.sock.sendall(struct.pack(">L", 1))
+
+    def _recv(self, n: int) -> bytes:
+        out = b""
+        while len(out) < n:
+            chunk = self.sock.recv(n - len(out))
+            if not chunk:
+                raise ConnectionError("api: connection closed")
+            out += chunk
+        return out
+
+    def request(self, cmd: int, ver: int, body: bytes) -> tuple:
+        self.sock.sendall(struct.pack(">HHL", cmd, ver, len(body)) + body)
+        status, _ver, n = struct.unpack(">HHL", self._recv(8))
+        return status, self._recv(n)
+
+    def close(self) -> None:
+        self.sock.close()
+
+
+def _api_str(text: str) -> bytes:
+    b = text.encode()
+    return struct.pack(">L", len(b)) + b
+
+
+def api_search_body(queries: list, index: str) -> bytes:
+    """One SphinxAPI multi-query (v.0x121, as ``sphinxapi`` clients send
+    it): relevance order, the default ranker, each query's limit and year
+    range filters."""
+    out = struct.pack(">lL", 0, len(queries))
+    for q in queries:
+        filt = b"".join(_api_str(f.attr) + struct.pack(">LQQL", 1, f.lo,
+                                                       f.hi, 0)
+                        for f in q.filters or [])
+        out += (struct.pack(">Lllll", 0, 0, q.limit, 6, 0)
+                + struct.pack(">l", 0) + _api_str("") + _api_str(q.match)
+                + struct.pack(">l", 0) + _api_str(index)
+                + struct.pack(">lQQ", 1, 0, 0)
+                + struct.pack(">l", len(q.filters or [])) + filt
+                + struct.pack(">L", 0) + _api_str("")
+                + struct.pack(">l", 1000) + _api_str("@count desc")
+                + struct.pack(">lll", 0, 0, 0) + _api_str("")
+                + struct.pack(">llL", 0, 0, 0) + struct.pack(">l", 0)
+                + _api_str("") + struct.pack(">l", 0) + _api_str("*")
+                + _api_str("") + struct.pack(">LLl", 0, 0, 0)
+                + struct.pack(">l", 0))
+    return out
+
+
+def api_search_results(b: bytes) -> tuple:
+    """A SEARCH reply -> ([((docid, weight) rows, total_found) per query],
+    the reply with each ``time_ms`` masked)."""
+    i, results = 0, []
+    masked = bytearray(b)
+
+    def u32() -> int:
+        nonlocal i
+        (v,) = struct.unpack_from(">L", b, i)
+        i += 4
+        return v
+
+    def skip_str() -> None:
+        nonlocal i
+        n = u32()
+        i += n
+    while i < len(b):
+        if u32() != 0:
+            n = u32()
+            raise AssertionError(f"api search: {b[i:i + n].decode()}")
+        for _ in range(u32()):
+            skip_str()
+        types = []
+        for _ in range(u32()):
+            skip_str()
+            types.append(u32())
+        count, rows = u32(), []
+        u32()                                   # id64
+        for _ in range(count):
+            docid, weight = struct.unpack_from(">Ql", b, i)
+            i += 12
+            rows.append((docid, weight))
+            for t in types:
+                if t == API_BIGINT:
+                    i += 8
+                elif t == API_STRING:
+                    skip_str()
+                elif t == API_MVA:
+                    n = u32()
+                    i += 4 * n
+                else:
+                    i += 4
+        u32()
+        total_found = u32()
+        masked[i:i + 4] = b"\0\0\0\0"           # time_ms
+        i += 4
+        for _ in range(u32()):
+            skip_str()
+            i += 8
+        results.append((rows, total_found))
+    return results, bytes(masked)
+
+
+def api_status_masked(b: bytes) -> list:
+    n, cols = struct.unpack_from(">ll", b, 0)
+    i, vals = 8, []
+    for _ in range(n * cols):
+        (k,) = struct.unpack_from(">L", b, i)
+        vals.append(b[i + 4:i + 4 + k].decode())
+        i += 4 + k
+    return [[v if not (c == 1 and vals[r * cols] == "uptime")
+             else FRONT_MASK for c, v in enumerate(vals[r * cols:
+                                                          (r + 1) * cols])]
+            for r in range(n)]
+
+
+def http_post(port: int, path: str, body: bytes) -> tuple:
+    """-> (HTTP status, the decoded JSON body)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=body, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_sql(port: int, sql: str) -> tuple:
+    import urllib.parse
+    return http_post(port, "/sql",
+                     ("query=" + urllib.parse.quote(sql)).encode())
+
+
+def json_masked(obj):
+    """A JSON answer with ``took`` (a search's time) masked."""
+    if isinstance(obj, list):
+        return [json_masked(v) for v in obj]
+    if isinstance(obj, dict):
+        return {k: FRONT_MASK if k == "took" else json_masked(v)
+                for k, v in obj.items()}
+    return obj
+
+
+def json_query(q: SearchQuery) -> dict:
+    """A phase 3 query as a ``/json/search`` request (``query_string``)."""
+    query: dict = {"query_string": q.match}
+    if q.filters:
+        query = {"bool": {"must": [query], "filter": [
+            {"range": {f.attr: {"gte": f.lo, "lte": f.hi}}}
+            for f in q.filters]}}
+    return {"index": "docs", "query": query, "limit": q.limit}
+
+
+def hits_rows(out: dict) -> tuple:
+    """((docid, weight) rows, total) of a JSON search-shaped answer."""
+    return ([(int(h["_id"]), int(h["_score"])) for h in out["hits"]["hits"]],
+            int(out["hits"]["total"]))
+
+
+class FrontTwins:
+    """Each request to a listener of the port on a ``Catalog(device=
+    "cuda")`` and to its twin on a ``Catalog(device="cpu")``: the card's
+    side runs under ``SqlTwins.counted`` (its launches equal to the count
+    from the plans of every table search it made, on any thread, and no
+    plain version), then the twin's; the two answers, time fields masked,
+    must be equal. Walls, search time and launches are kept per
+    protocol."""
+
+    def __init__(self, counter: SqlTwins):
+        self.counter = counter
+        self.walls: Counter = Counter()
+        self.search: Counter = Counter()
+        self.n: Counter = Counter()
+        self.k1: Counter = Counter()
+        self.seg: Counter = Counter()
+
+    def request(self, proto: str, label: str, gpu, cpu, norm=None,
+                pq: bool = False):
+        c = self.counter
+        s0, k0, g0 = c.search_s, c.got_k1, c.got_seg
+        got = c.counted(f"front {proto} {label[:100]!r}", gpu, pq=pq)
+        want = cpu()
+        norm = norm or (lambda x: x)
+        if norm(got) != norm(want):
+            raise AssertionError(f"front {proto} {label[:200]!r}: cuda "
+                                 f"{str(norm(got))[:2000]} != cpu "
+                                 f"{str(norm(want))[:2000]}")
+        self.walls[proto] += c.last_wall
+        self.search[proto] += c.search_s - s0
+        self.k1[proto] += c.got_k1 - k0
+        self.seg[proto] += c.got_seg - g0
+        self.n[proto] += 1
+        return got
+
+    def report(self, launches_by_path: dict, t_start: float) -> None:
+        for proto in sorted(self.n):
+            launches_by_path[f"front {proto}"] = self.k1[proto]
+            if self.seg[proto]:
+                SEG_BY_PATH[f"front {proto}"] = self.seg[proto]
+            wall = max(self.walls[proto], 1e-9)
+            print(f"front {proto}: {self.n[proto]} requests on cuda and "
+                  f"cpu, equal; bitplane_decode launches {self.k1[proto]}, "
+                  f"segment_sum_ordered launches {self.seg[proto]} (each "
+                  f"as the plans count), no plain version; cuda wall "
+                  f"{self.walls[proto]:.3f} s, "
+                  f"{self.walls[proto] / self.n[proto] * 1e3:.1f} ms per "
+                  f"request, of it the tables' search "
+                  f"{self.search[proto] / wall:.3f} (summed over threads: "
+                  f"above 1 where requests search at once)")
+        c = self.counter
+        print(f"front: {c.statements} requests, bitplane_decode launches "
+              f"{c.got_k1} (expected {c.want_k1} from the plans of "
+              f"{c.searches} table searches), segment_sum_ordered launches "
+              f"{c.got_seg} (expected {c.want_seg})")
+        print(f"{since(t_start)} front listeners done")
+
+
+class HttpSqlBatch:
+    """``search_batch`` over ``/sql`` requests to one port (for
+    ``time_batch`` and ``profile_batch``)."""
+
+    def __init__(self, port: int):
+        self.port = port
+
+    def search_batch(self, sqls: list[str]) -> list:
+        return [http_sql(self.port, sql) for sql in sqls]
+
+
+def free_ports(n: int) -> list[int]:
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    for sk in socks:
+        sk.bind(("127.0.0.1", 0))
+    ports = [sk.getsockname()[1] for sk in socks]
+    for sk in socks:
+        sk.close()
+    return ports
+
+
+class DaemonProcess:
+    """``python -m manticoresearch_tpu_torch.server.daemon`` as users start
+    it, on three ports, its output in ``<data_dir>.log``."""
+
+    def __init__(self, data_dir: str, ports: list[int]):
+        import socket
+        self.data_dir, self.ports = data_dir, ports
+        self.log_path = data_dir.rstrip("/") + ".log"
+        self.log = open(self.log_path, "a")
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=root + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "manticoresearch_tpu_torch.server.daemon",
+             "--data-dir", data_dir, "--listen-mysql", str(ports[0]),
+             "--listen-http", str(ports[1]), "--listen-api", str(ports[2])]
+            + FRONT_DEVICE_ARGS, cwd=root, env=env, stdout=self.log,
+            stderr=subprocess.STDOUT)
+        while True:
+            if self.proc.poll() is not None:
+                self.fail(f"exited with {self.proc.returncode} at start")
+            if time.perf_counter() - t0 > FRONT_DAEMON_START_S:
+                self.fail("did not listen")
+            try:
+                for port in ports:
+                    socket.create_connection(("127.0.0.1", port), 1).close()
+                break
+            except OSError:
+                time.sleep(0.1)
+        self.start_s = time.perf_counter() - t0
+
+    def fail(self, what: str) -> None:
+        self.kill()
+        print(f"daemon {what}; the tail of its log:")
+        with open(self.log_path) as f:
+            print("".join(f.readlines()[-40:]))
+        crash = os.path.join(self.data_dir, "crash.log")
+        if os.path.exists(crash):
+            with open(crash) as f:
+                print("crash.log:", f.read()[-4000:])
+        raise AssertionError(f"daemon {what}")
+
+    def stop(self) -> float:
+        """SIGTERM; -> seconds until it exited (with code 0)."""
+        import signal
+        t0 = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(FRONT_DAEMON_STOP_S)
+        except subprocess.TimeoutExpired:
+            self.fail(f"did not exit within {FRONT_DAEMON_STOP_S} s of "
+                      "SIGTERM")
+        if rc != 0:
+            self.fail(f"exited with {rc} on SIGTERM")
+        self.log.close()
+        return time.perf_counter() - t0
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+        self.log.close()
+
+
+def front_phase(packed, batches: dict, gpu_results: dict,
+                launches_by_path: dict, t_start: float) -> None:
+    """Phase 22: the front ends on the card. 1: the port's MySQL, HTTP and
+    SphinxAPI listeners on a ``Catalog(device="cuda")`` and their twins on
+    a ``Catalog(device="cpu")`` in this process, each request to both
+    (``FrontTwins``): phase 3's queries through every protocol (equal to
+    phase 5's results), GROUP BY with AVG, writes, a highlight, percolate
+    queries, KEYWORDS, STATUS and a ping. 2: the daemon as a process on
+    the card: IMPORT TABLE, the SELECTs (equal to part 1's), the table's
+    memory on the card, a replayed query log, SIGTERM, a restart that
+    reloads the table, and a replay against its data directory."""
+    import asyncio
+    import io
+    import itertools
+    import shutil
+    import tempfile
+    import threading
+    from manticoresearch_tpu_torch.exec.session import Catalog, Session
+    from manticoresearch_tpu_torch.index.storage import save_packed
+    from manticoresearch_tpu_torch.server.api import ApiServer
+    from manticoresearch_tpu_torch.server.http import HttpServer
+    from manticoresearch_tpu_torch.server.mysql import MysqlServer
+    from manticoresearch_tpu_torch.tools import replay
+    from manticoresearch_tpu_torch.utils import uid
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_front_")
+    counter = loop = None
+    servers: dict = {}
+    clients: list = []
+    daemon = None
+    try:
+        t0 = time.perf_counter()
+        save_packed(packed, os.path.join(tmp, "docs"))
+        print(f"front: the 200k index saved in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # 1. the listeners in this process, on the card and on the CPU
+        cats = {"cuda": Catalog(device="cuda"), "cpu": Catalog(device="cpu")}
+        loop = asyncio.new_event_loop()
+        started = threading.Event()
+        for dev, cat in cats.items():
+            servers[dev] = {"mysql": MysqlServer(cat, port=0),
+                            "http": HttpServer(cat, port=0),
+                            "api": ApiServer(cat, port=0)}
+
+        def serve():
+            asyncio.set_event_loop(loop)
+            for by_proto in servers.values():
+                for srv in by_proto.values():
+                    loop.run_until_complete(srv.start())
+                    srv.port = srv._server.sockets[0].getsockname()[1]
+            started.set()
+            loop.run_forever()
+        loop_thread = threading.Thread(target=serve, daemon=True)
+        loop_thread.start()
+        if not started.wait(60):
+            raise AssertionError("front: the listeners did not start")
+        port = {dev: {p: srv.port for p, srv in by_proto.items()}
+                for dev, by_proto in servers.items()}
+        my = {dev: WireMysql(port[dev]["mysql"]) for dev in cats}
+        api = {dev: WireApi(port[dev]["api"]) for dev in cats}
+        clients += list(my.values()) + list(api.values())
+        counter = SqlTwins(None, None)
+        front = FrontTwins(counter)
+
+        def mysql(sql: str, want_error: bool = False) -> dict:
+            got = front.request("mysql", sql, lambda: my["cuda"].query(sql),
+                                lambda: my["cpu"].query(sql), mysql_masked)
+            if ("error" in got) != want_error:
+                raise AssertionError(f"front mysql {sql[:100]!r}: {got}")
+            return got
+
+        def http(path: str, body: bytes, label: str, pq: bool = False,
+                 cpu_first=None) -> dict:
+            def cpu():
+                if cpu_first:
+                    cpu_first()
+                return http_post(port["cpu"]["http"], path, body)
+            status, got = front.request(
+                "http", f"{path} {label}",
+                lambda: http_post(port["cuda"]["http"], path, body), cpu,
+                lambda r: (r[0], json_masked(r[1])), pq=pq)
+            if status != 200:
+                raise AssertionError(f"front http {path} {label[:100]!r}: "
+                                     f"{status} {got}")
+            return got
+
+        def sql_http(sql: str) -> dict:
+            import urllib.parse
+            return http("/sql", ("query=" + urllib.parse.quote(sql)
+                                 ).encode(), sql)
+
+        def api_search(queries: list) -> list:
+            body = api_search_body(queries, "docs")
+
+            def norm(r):
+                return r[0], api_search_results(r[1])[1]
+            status, payload = front.request(
+                "api", f"SEARCH of {len(queries)}",
+                lambda: api["cuda"].request(0, API_VER_SEARCH, body),
+                lambda: api["cpu"].request(0, API_VER_SEARCH, body), norm)
+            if status != 0:
+                raise AssertionError(f"front api SEARCH: status {status}")
+            return api_search_results(payload)[0]
+
+        def api_burst(queries: list, want: list) -> None:
+            """The multi-query from FRONT_API_CLIENTS connections at once:
+            the listener searches from as many worker threads; each
+            answer equal to the one-client answer ``want``."""
+            from concurrent.futures import ThreadPoolExecutor
+            body = api_search_body(queries, "docs")
+
+            def run(dev: str) -> list:
+                conns = [WireApi(port[dev]["api"])
+                         for _ in range(FRONT_API_CLIENTS)]
+                try:
+                    with ThreadPoolExecutor(FRONT_API_CLIENTS) as ex:
+                        return list(ex.map(lambda c: c.request(
+                            0, API_VER_SEARCH, body), conns))
+                finally:
+                    for c in conns:
+                        c.close()
+            got = front.request(
+                "api", f"{FRONT_API_CLIENTS} concurrent SEARCHes",
+                lambda: run("cuda"), lambda: run("cpu"),
+                lambda rs: [(st, api_search_results(p)[1]) for st, p in rs])
+            for status, payload in got:
+                if status != 0 or api_search_results(payload)[0] != want:
+                    raise AssertionError("front api: a concurrent SEARCH "
+                                         "differs from the one-client one")
+
+        mysql("SET GLOBAL qcache_max_bytes=0")
+        mysql(f"IMPORT TABLE docs FROM '{os.path.join(tmp, 'docs')}'")
+        docs = cats["cuda"].tables["docs"]
+        table_bytes = sum(index_bytes(s.search) for s in docs.segments)
+        print(f"front: IMPORT TABLE docs over MySQL: {docs.n_docs} docs, "
+              f"{len(docs.segments)} segment, device memory "
+              f"{table_bytes / 2**20:.1f} MiB")
+
+        qs = batches["config1"][:FRONT_QUERIES] + \
+            batches["config2"][:FRONT_QUERIES]
+        sqls = [sql_match(q).format(t="docs") for q in qs]
+        limits = [q.limit for q in qs]
+        want = [([(m.docid, m.weight) for m in r.matches], r.total_found)
+                for r in gpu_results["config1"][:FRONT_QUERIES]
+                + gpu_results["config2"][:FRONT_QUERIES]]
+        c4 = bench_corpus.WorkloadGen(np.random.RandomState(33), VOCAB,
+                                      packed).config4(FRONT_GROUPED)[1]
+        grouped = [sql_grouped(q, "AVG") for q in c4]
+        t1, t2 = qs[0].match, qs[FRONT_QUERIES].match.split()[0]
+
+        def selects(tag: str, check: bool) -> dict:
+            """The 32 queries through every protocol (and the GROUP BYs
+            over MySQL and /sql); -> the card's answers by protocol."""
+            out: dict = {"mysql": [], "sql": [], "json": []}
+            walls: dict = {}
+
+            def timed(name: str, value):
+                walls.setdefault(name, []).append(counter.last_wall * 1e3)
+                return value
+            for sql in sqls:
+                res = timed("mysql SELECT", mysql(sql))
+                meta = timed("mysql SHOW META", mysql("SHOW META"))
+                out["mysql"].append((res, meta))
+            for sql in sqls:
+                out["sql"].append(timed("/sql", sql_http(sql)))
+            for q in qs:
+                body = json.dumps(json_query(q)).encode()
+                out["json"].append(timed("/json/search", http(
+                    "/json/search", body, q.match)))
+            out["api"] = timed("api multi-query", api_search(qs))
+            timed(f"api {FRONT_API_CLIENTS} concurrent multi-queries",
+                  api_burst(qs, out["api"]))
+            print(f"front selects ({tag}): cuda wall per request, median "
+                  f"[min, max] (ms): " + "; ".join(
+                      f"{k} {np.median(v):.2f} [{min(v):.2f}, {max(v):.2f}]"
+                      for k, v in walls.items()))
+            for sql in grouped:
+                mysql(sql)
+                sql_http(sql)
+            if check:
+                got = {
+                    "mysql": [([(int(a), int(b)) for a, b in r["rows"]],
+                               int(dict(m["rows"])["total_found"]))
+                              for r, m in out["mysql"]],
+                    "/sql": [hits_rows(o) for o in out["sql"]],
+                    "/json/search": [hits_rows(o) for o in out["json"]],
+                    "sphinxapi": out["api"]}
+                for proto, rows in got.items():
+                    check_sql_ties(f"front {proto} {tag} vs the 200k "
+                                   "SearchIndex", sqls, rows, want, limits)
+            print(f"{since(t_start)} front selects ({tag}) done")
+            return out
+
+        first = selects("after IMPORT", True)
+
+        # writes: MySQL transactions, then the JSON write endpoints
+        rng = np.random.RandomState(43)
+        next_id = N_DOCS + 1
+        cdocs = cats["cpu"].tables["docs"]
+        cols = "(id, content, year, group_id)"
+
+        def values(ds):
+            return ", ".join(f"({d['id']}, '{d['content']}', {d['year']}, "
+                             f"{d['group_id']})" for d in ds)
+        for _ in range(FRONT_TXNS):
+            (updates, year, replaces, inserts, deletes,
+             next_id) = rt_write_stream(rng, cdocs, next_id)
+            txn = (["BEGIN", f"UPDATE docs SET year = {year} WHERE id IN "
+                    f"({', '.join(map(str, updates))})"]
+                   + [f"{verb} INTO docs {cols} VALUES "
+                      f"{values(rows[i:i + FRONT_ROWS])}"
+                      for verb, rows in (("REPLACE", replaces),
+                                         ("INSERT", inserts))
+                      for i in range(0, len(rows), FRONT_ROWS)]
+                   + [f"DELETE FROM docs WHERE id IN "
+                      f"({', '.join(map(str, deletes))})", "COMMIT"])
+            for sql in txn:
+                mysql(sql)
+        texts = corpus_texts(rng.choice(N_DOCS, 4 * FRONT_JSON_DOCS
+                                        + FRONT_BULK, replace=False).tolist())
+        live = sorted(rng.choice(N_DOCS // 2, 3 * FRONT_JSON_DOCS,
+                                 replace=False).tolist())
+        for k in range(FRONT_JSON_DOCS):
+            doc = {"content": texts.pop(), "year": 2000 + k,
+                   "group_id": k}
+            http("/json/insert", json.dumps(
+                {"index": "docs", "id": next_id, "doc": doc}).encode(),
+                "insert")
+            next_id += 1
+            http("/json/replace", json.dumps(
+                {"index": "docs", "id": live[k] + 1,
+                 "doc": dict(doc, content=texts.pop())}).encode(),
+                "replace")
+            http("/json/update", json.dumps(
+                {"index": "docs", "id": live[FRONT_JSON_DOCS + k] + 1,
+                 "doc": {"year": 1990 + k}}).encode(), "update")
+            http("/json/delete", json.dumps(
+                {"index": "docs", "id": live[2 * FRONT_JSON_DOCS + k] + 1}
+            ).encode(), "delete")
+        bulk = "\n".join(json.dumps({"insert": {
+            "index": "docs", "id": next_id + i,
+            "doc": {"content": texts.pop() + " frontbulk",
+                    "year": 2000 + i % 25, "group_id": i % 100}}})
+            for i in range(FRONT_BULK))
+        out = http("/json/bulk", bulk.encode(), f"{FRONT_BULK} documents")
+        if out.get("errors") or len(out.get("items", [])) != FRONT_BULK:
+            raise AssertionError(f"front /json/bulk: {str(out)[:500]}")
+        next_id += FRONT_BULK
+        print(f"front writes: {FRONT_TXNS} MySQL transactions of {RT_OPS} "
+              f"operations (statements of at most {FRONT_ROWS} rows), "
+              f"{FRONT_JSON_DOCS} each of /json/insert, replace, update and "
+              f"delete, a /json/bulk of {FRONT_BULK}; {len(docs.segments)} "
+              f"segments, {docs.n_docs} docs")
+        selects("after the writes", False)
+        # a highlight needs stored text: a small table that keeps it
+        sql_http("CREATE TABLE notes (content text, year uint)")
+        mysql("INSERT INTO notes (id, content, year) VALUES " + ", ".join(
+            f"({i + 1}, '{t} frontbulk', {2000 + i})"
+            for i, t in enumerate(corpus_texts(list(range(FRONT_ROWS))))))
+        hl = http("/json/search", json.dumps({
+            "index": "notes", "query": {"match": {"content": f"{t1}"}},
+            "limit": 5, "highlight": {"fields": ["content"],
+                                      "limit": 80}}).encode(), "highlight")
+        frags = [f for h in hl["hits"]["hits"]
+                 for f in h.get("highlight", {}).get("content", [])]
+        print(f"front highlight: {hl['hits']['total']} hits, "
+              f"{len(frags)} fragments, the first {frags[:1]}")
+        if not any("<b>" in f for f in frags):
+            raise AssertionError(f"front highlight: no highlighted "
+                                 f"fragment in {str(hl)[:500]}")
+
+        # percolate: stored queries by /json/pq/<t>/doc, then a search
+        sql_http("CREATE TABLE pq (content text, year uint) "
+                 "type='percolate'")
+        gen = bench_corpus.WorkloadGen(np.random.RandomState(45), VOCAB,
+                                       packed)
+        stored = [q.match for q in
+                  config1_queries(gen, FRONT_PQ_QUERIES // 2)
+                  + config2_queries(gen, FRONT_PQ_QUERIES // 2)]
+        mark: dict = {}
+
+        def peek_uid():
+            n = next(uid._counter)
+            uid._counter = itertools.count(n)
+            mark["n"] = n
+
+        def rewind_uid():       # the twin draws the same auto ids
+            uid._counter = itertools.count(mark["n"])
+        for m in stored:
+            peek_uid()
+            http("/json/pq/pq/doc", json.dumps({"query": {"ql": m}}).encode(),
+                 m, cpu_first=rewind_uid)
+        rows = np.random.RandomState(47).choice(N_DOCS, FRONT_PQ_DOCS,
+                                                replace=False).tolist()
+        pq_docs = [{"content": t, "year": 2000 + r % 25}
+                   for t, r in zip(corpus_texts(rows), rows)]
+        searched = counter.searches
+        out = http("/json/pq/pq/search", json.dumps({"query": {"percolate": {
+            "documents": pq_docs}}}).encode(), "search", pq=True)
+        print(f"front percolate: {FRONT_PQ_QUERIES} stored queries, "
+              f"{FRONT_PQ_DOCS} documents: {out['hits']['total']} queries "
+              f"match, {counter.searches - searched} stored queries "
+              f"searched; wall {counter.last_wall:.3f} s on cuda")
+        if not out["hits"]["total"]:
+            raise AssertionError("front percolate: no stored query matched")
+
+        # KEYWORDS, STATUS, ping
+        kw = (_api_str(f"{t1} {t2} t00001") + _api_str("docs")
+              + struct.pack(">lllll", 1, 0, 0, 0, 0))
+        front.request("api", "KEYWORDS",
+                      lambda: api["cuda"].request(3, API_VER_KEYWORDS, kw),
+                      lambda: api["cpu"].request(3, API_VER_KEYWORDS, kw))
+        front.request("api", "STATUS",
+                      lambda: api["cuda"].request(5, API_VER_STATUS,
+                                                  struct.pack(">L", 1)),
+                      lambda: api["cpu"].request(5, API_VER_STATUS,
+                                                 struct.pack(">L", 1)),
+                      lambda r: (r[0], api_status_masked(r[1])))
+        front.request("mysql", "COM_PING",
+                      lambda: my["cuda"].command(0x0E),
+                      lambda: my["cpu"].command(0x0E))
+        front.report(launches_by_path, t_start)
+        time_batch("front http /sql (8 SELECTs after the writes)",
+                   HttpSqlBatch(port["cuda"]["http"]), sqls[:8],
+                   FRONT_WARM_RUNS, sqls[:1])
+
+        # the query log of the 32 SELECTs, written by a CPU session
+        log = io.StringIO()
+        sess = Session(cats["cpu"])
+        sess.query_log = log
+        for sql in sqls:
+            if sess.execute(sql)[0].error is not None:
+                raise AssertionError(f"front query log: {sql!r}")
+        sess.close()
+        log_path = os.path.join(tmp, "query.log")
+        with open(log_path, "w") as f:
+            f.write(log.getvalue())
+
+        # 2. the daemon as a process
+        for c in clients:
+            c.close()
+        clients = []
+        asyncio.run_coroutine_threadsafe(_stop_all(servers), loop).result(60)
+        loop.call_soon_threadsafe(loop.stop)
+        loop_thread.join(60)
+        loop = None
+        counter.close()
+        counter = None
+        del cats, docs, cdocs, servers
+        servers = {}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        ddir = os.path.join(tmp, "daemon")
+        dports = free_ports(3)
+        daemon = DaemonProcess(ddir, dports)
+        print(f"front daemon: listening on MySQL {dports[0]}, HTTP "
+              f"{dports[1]}, SphinxAPI {dports[2]} after "
+              f"{daemon.start_s:.2f} s")
+        free0 = torch.cuda.mem_get_info()[0]
+        t0 = time.perf_counter()
+        for sql in ("SET GLOBAL qcache_max_bytes=0",
+                    f"IMPORT TABLE docs FROM '{os.path.join(tmp, 'docs')}'"):
+            status, out = http_sql(dports[1], sql)
+            if status != 200 or out.get("error"):
+                daemon.fail(f"{sql}: {status} {out}")
+        import_s = time.perf_counter() - t0
+        free1 = torch.cuda.mem_get_info()[0]
+        try:
+            apps = subprocess.run(
+                ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                timeout=60).stdout.strip().replace("\n", "; ")
+        except (OSError, subprocess.SubprocessError) as e:
+            apps = f"not read ({e})"
+        print(f"front daemon: IMPORT TABLE over /sql {import_s:.2f} s; the "
+              f"card's free memory fell by {(free0 - free1) / 2**20:.1f} "
+              f"MiB (the table took {table_bytes / 2**20:.1f} MiB in part "
+              f"1); nvidia-smi compute apps: {apps or 'none listed'} "
+              f"(daemon pid {daemon.proc.pid})")
+        if free0 - free1 < 0.9 * table_bytes:
+            daemon.fail(f"holds {(free0 - free1) / 2**20:.1f} MiB on the "
+                        f"card, less than 0.9 of the table's "
+                        f"{table_bytes / 2**20:.1f} MiB")
+
+        def daemon_selects(tag: str) -> None:
+            t0 = time.perf_counter()
+            dmy = WireMysql(dports[0])
+            try:
+                for sql, (res, meta) in zip(sqls, first["mysql"]):
+                    got = (mysql_masked(dmy.query(sql)),
+                           mysql_masked(dmy.query("SHOW META")))
+                    if got != (mysql_masked(res), mysql_masked(meta)):
+                        daemon.fail(f"mysql {sql!r} ({tag}): {got} != "
+                                    f"{res}, {meta}")
+            finally:
+                dmy.close()
+            for sql, res in zip(sqls, first["sql"]):
+                status, got = http_sql(dports[1], sql)
+                if status != 200 or json_masked(got) != json_masked(res):
+                    daemon.fail(f"/sql {sql!r} ({tag}): {status} {got} != "
+                                f"{res}")
+            dapi = WireApi(dports[2])
+            try:
+                status, payload = dapi.request(
+                    0, API_VER_SEARCH, api_search_body(qs, "docs"))
+            finally:
+                dapi.close()
+            if status != 0 or api_search_results(payload)[0] != first["api"]:
+                daemon.fail(f"api search ({tag}): status {status}")
+            print(f"front daemon ({tag}): the {len(sqls)} SELECTs over "
+                  f"MySQL (with SHOW META) and /sql and one SphinxAPI "
+                  f"multi-query equal to part 1's on the card; "
+                  f"{time.perf_counter() - t0:.2f} s")
+        daemon_selects("after IMPORT")
+        rc = replay.main(["--log", log_path, "--host", "127.0.0.1",
+                          "--port", str(dports[1]), "--quiet"])
+        if rc != 0:
+            daemon.fail(f"replay --host returned {rc}")
+        stop_s = daemon.stop()
+        daemon = DaemonProcess(ddir, dports)
+        print(f"front daemon: SIGTERM, exit 0 after {stop_s:.2f} s; "
+              f"restarted on its data directory, listening after "
+              f"{daemon.start_s:.2f} s (the table reloaded)")
+        daemon_selects("after the restart")
+        stop_s = daemon.stop()
+        daemon = None
+        t0 = time.perf_counter()
+        rc = replay.main(["--log", log_path, "--data-dir", ddir, "--quiet"]
+                         + FRONT_DEVICE_ARGS)
+        torch.cuda.synchronize()
+        print(f"front replay --data-dir: returned {rc} in "
+              f"{time.perf_counter() - t0:.2f} s (daemon stopped in "
+              f"{stop_s:.2f} s)")
+        if rc != 0:
+            raise AssertionError(f"front replay --data-dir returned {rc}")
+    finally:
+        for c in clients:
+            c.close()
+        if loop is not None:
+            asyncio.run_coroutine_threadsafe(_stop_all(servers),
+                                             loop).result(60)
+            loop.call_soon_threadsafe(loop.stop)
+        if counter is not None:
+            counter.close()
+        if daemon is not None:
+            daemon.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"{since(t_start)} phase 22 done in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
+async def _stop_all(servers: dict) -> None:
+    """Close every listener and cancel its connections' handlers."""
+    import asyncio
+    for by_proto in servers.values():
+        for srv in by_proto.values():
+            if srv._server is not None:
+                srv._server.close()
+    me = asyncio.current_task()
+    tasks = [t for t in asyncio.all_tasks() if t is not me]
+    for t in tasks:
+        t.cancel()
+    await asyncio.gather(*tasks, return_exceptions=True)
+
+
 def set_sparse_mode(mode: str, *indexes: SearchIndex) -> None:
     """The planner's MT_SPARSE override; cached plans are dropped."""
     os.environ["MT_SPARSE"] = mode
@@ -2744,6 +3699,10 @@ def main() -> int:
     # 21. replication: two nodes on the card and a CPU twin cluster; the
     # 200k table by snapshot transfer, writes from both nodes
     cluster_phase(packed, batches, launches_by_path, t_start)
+
+    # 22. the front ends: the MySQL, HTTP and SphinxAPI listeners on the
+    # card against CPU twins, then the daemon as a process
+    front_phase(packed, batches, gpu_results, launches_by_path, t_start)
     del gpu, cpu, packed, data, batch_items, plans, all_plans
     torch.cuda.empty_cache()
     print(f"{since(t_start)} 200k phases done")

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import operator
 import re
+import threading
 import time
 from dataclasses import dataclass, field as dc_field, replace
 from typing import Any
@@ -272,11 +273,22 @@ class SearchIndex:
         self.device = upload(packed, device)
         self.tokenizer = Tokenizer(packed.tokenizer_settings)
         self.dictionary = Dictionary(packed.dict_settings)
-        self.parser = FtQueryParser(
-            self.tokenizer, self.dictionary, packed.schema.fields)
+        self._parsers = threading.local()
         self._plan_cache: dict = {}
         self._attr_dtypes = {k: v.dtype for k, v in
                              self.device.data_pytree()["attrs"].items()}
+
+    @property
+    def parser(self) -> FtQueryParser:
+        """This thread's query parser. ``FtQueryParser`` keeps its parse
+        state on the instance, so each thread that searches the index (the
+        SphinxAPI listener's workers) parses with its own; the JAX package
+        shares one between threads (ROADMAP queue 3)."""
+        parser = getattr(self._parsers, "parser", None)
+        if parser is None:
+            parser = self._parsers.parser = FtQueryParser(
+                self.tokenizer, self.dictionary, self.packed.schema.fields)
+        return parser
 
     @property
     def schema(self):

@@ -1199,7 +1199,8 @@ _VERBATIM_COPIES = (
     "query/__init__.py", "query/ast.py", "query/explain.py",
     "query/ftparser.py", "query/jsonquery.py", "query/plan.py",
     "query/planner.py", "query/sphinxql.py", "schema.py",
-    "server/__init__.py", "server/agent.py", "server/cluster.py",
+    "server/__init__.py", "server/agent.py", "server/api.py",
+    "server/cluster.py", "server/http.py", "server/mysql.py",
     "server/repl.py", "text/__init__.py", "text/charset.py",
     "text/dictionary.py", "text/htmlstrip.py", "text/morphology.py",
     "tools/__init__.py", "tools/indexer.py", "tools/indextool.py",
@@ -1232,3 +1233,33 @@ def test_copy_equals_jax_original_but_imports(rel):
     port = repo / "manticoresearch_tpu_torch" / rel
     jax_src = repo / "manticoresearch_tpu" / rel
     assert _code_without_imports(port) == _code_without_imports(jax_src)
+
+
+# port modules that differ from their JAX original only by the ``device``
+# plumbing (a ``device`` parameter, its ``--device`` option, and passing it
+# on) and, in the daemon, the module name its watchdog starts
+_DEVICE_COPIES = ("server/daemon.py", "tools/replay.py")
+_DEVICE_PLUMBING = (
+    r", device=(\'cuda\'|device|self\.catalog\.device|args\.device)",
+    r"\n *ap\.add_argument\(\'--device\'[^\n]*\)")
+
+
+def _code_unparsed(path: _Path) -> str:
+    tree = _ast.parse(path.read_text(), str(path))
+    if _ast.get_docstring(tree) is not None:
+        tree.body = tree.body[1:]
+    return _ast.unparse(tree)
+
+
+@pytest.mark.parametrize("rel", _DEVICE_COPIES)
+def test_copy_differs_from_jax_by_device_only(rel):
+    import re
+    repo = _Path(__file__).resolve().parent.parent
+    port = _code_unparsed(repo / "manticoresearch_tpu_torch" / rel)
+    want = _code_unparsed(repo / "manticoresearch_tpu" / rel)
+    assert port != want
+    for pattern in _DEVICE_PLUMBING:
+        port = re.sub(pattern, "", port)
+    port = port.replace("manticoresearch_tpu_torch.server.daemon",
+                        "manticoresearch_tpu.server.daemon")
+    assert port == want

@@ -14,7 +14,10 @@ OPTIMIZE; then a port ``Session(Catalog(device="cpu"))`` runs CREATE
 TABLE, INSERT, a SELECT with MATCH, CALL PQ on a percolate table and a
 SELECT on a local-only distributed table; then two port nodes (each a
 ``ClusterService`` on port 0) run CREATE / ALTER / JOIN CLUSTER and a
-``cluster:table`` INSERT from the joiner, read back on the creator.
+``cluster:table`` INSERT from the joiner, read back on the creator; then
+a port ``Daemon(device="cpu")`` creates, fills and searches a table over
+its HTTP listener's dispatch, and ``tools.replay`` replays a query log
+against its data directory.
 
 Tolerance: exact (import graphs and docids).
 """
@@ -124,6 +127,10 @@ def test_port_imports_nothing_that_reaches_jax():
             port / "server" / "__init__.py", port / "server" / "cluster.py",
             port / "server" / "repl.py",
             port / "tools" / "indexer.py"} <= set(files)
+    # the front ends
+    assert {port / "server" / "mysql.py", port / "server" / "http.py",
+            port / "server" / "api.py", port / "server" / "daemon.py",
+            port / "tools" / "replay.py"} <= set(files)
     bad = {}
     for f in files:
         deps = _imports(f, module_level_only=False)
@@ -242,6 +249,30 @@ finally:
     for _, _, svc in nodes:
         svc.stop()
     shutil.rmtree(tmp, ignore_errors=True)
+import json, os
+from manticoresearch_tpu_torch.server.api import ApiServer
+from manticoresearch_tpu_torch.server.daemon import Daemon
+from manticoresearch_tpu_torch.server.http import HttpServer
+from manticoresearch_tpu_torch.server.mysql import MysqlServer
+from manticoresearch_tpu_torch.tools import replay
+tmp = tempfile.mkdtemp()
+d = Daemon(os.path.join(tmp, "daemon"), device="cpu", api_port=0)
+assert isinstance(d.mysql, MysqlServer) and isinstance(d.api, ApiServer)
+status, _, body = d.http.handle_request(
+    "POST", "/sql", {}, b"query=CREATE TABLE h (title text)")
+assert status.startswith("200"), body
+d.http.handle_request("POST", "/json/insert", {}, json.dumps(
+    {"index": "h", "id": 7, "doc": {"title": "red apple"}}).encode())
+status, _, body = d.http.handle_request("POST", "/json/search", {},
+    json.dumps({"index": "h", "query": {"match": {"title": "apple"}}}
+               ).encode())
+print("HTTP", [h["_id"] for h in json.loads(body)["hits"]["hits"]])
+with open(os.path.join(tmp, "q.log"), "w") as f:
+    f.write("SELECT id FROM h WHERE MATCH('apple');\n")
+rc = replay.main(["--log", os.path.join(tmp, "q.log"), "--data-dir",
+                  os.path.join(tmp, "daemon"), "--device", "cpu", "--quiet"])
+print("REPLAY", rc)
+shutil.rmtree(tmp, ignore_errors=True)
 assert not [m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "manticoresearch_tpu", "bench")]
 print("DOCIDS", sorted(m.docid for m in r.matches))
@@ -261,3 +292,5 @@ def test_port_runs_where_jax_cannot_be_imported():
     assert "PQ ['2', '1']" in proc.stdout
     assert "DIST [1, 3, 4]" in proc.stdout
     assert "CLUSTER [5]" in proc.stdout
+    assert "HTTP [7]" in proc.stdout
+    assert "REPLAY 0" in proc.stdout

@@ -5,9 +5,11 @@
   of a JAX ``Session`` and of the port's on ``device="cpu"`` equal), and
   its ``build_snippet`` calls go to both packages' ``build_snippet`` with
   the same text, query, tokenizer and dictionary settings and options,
-  the two strings held equal. Left out: the two cases of
-  ``TestJsonHighlight``, which drive ``server/http.py``, a module the port
-  does not carry yet.
+  the two strings held equal. The two cases of ``TestJsonHighlight`` run
+  their ``/json/search`` requests with ``highlight`` through a JAX
+  ``HttpServer`` and the port's over twin catalogs (``TwinHttp`` of
+  ``tests/_torch_wire.py``: status and JSON bodies equal, ``took``
+  masked).
 - ``build_snippet`` on seeded texts (words, sentences, paragraphs and
   HTML) under every field of ``SnippetOptions``, and CALL SNIPPETS under
   every alias of ``OPTION_ALIASES``.
@@ -83,6 +85,43 @@ class TestSnippets(base.TestSnippets):
 
 class TestPercolate(base.TestPercolate):
     pass
+
+
+class TestJsonHighlight(base.TestJsonHighlight):
+    @pytest.fixture(autouse=True)
+    def _twin_http(self, monkeypatch):
+        """Its cases import ``Catalog``, ``Session`` and ``HttpServer``
+        from the JAX modules inside the test body: those names become
+        twins built from the JAX classes and the port's."""
+        from manticoresearch_tpu.exec import session as jax_session
+        from manticoresearch_tpu.server import http as jax_http
+        from manticoresearch_tpu_torch.exec import session as port_session
+        from manticoresearch_tpu_torch.server.http import \
+            HttpServer as PortHttpServer
+        from tests._torch_wire import TwinHttp
+        jax_cat, jax_sess = jax_session.Catalog, jax_session.Session
+        jax_server = jax_http.HttpServer
+
+        class Catalog(TwinCatalog):
+            def __init__(self):
+                self.jax = jax_cat()
+                self.port = port_session.Catalog(device="cpu")
+
+        class Session(TwinSession):
+            # the JAX module reaches its session registry by this name
+            _next_tid, _registry = jax_sess._next_tid, jax_sess._registry
+
+            def __init__(self, catalog):
+                self.twin_catalog = catalog
+                self.jax = jax_sess(catalog.jax)
+                self.port = port_session.Session(catalog.port)
+
+        def http_server(catalog):
+            return TwinHttp(jax_server(catalog.jax),
+                            PortHttpServer(catalog.port))
+        monkeypatch.setattr(jax_session, "Catalog", Catalog)
+        monkeypatch.setattr(jax_session, "Session", Session)
+        monkeypatch.setattr(jax_http, "HttpServer", http_server)
 
 
 class TestSnippetOptions(base.TestSnippetOptions):
