@@ -118,7 +118,7 @@ results are held equal to the same queries on ``device="cpu"``.
     through the segment-sum kernel (PACKEDFACTORS() batch) and no plain
     sum, results and PACKEDFACTORS() strings equal to the CPU port, how
     many of the formula batch's top-10 lists equal the default ranker's,
-    launches per query (the PACKEDFACTORS() batch profiled on its first 8
+    launches per query (the PACKEDFACTORS() batch profiled on its first 4
     queries). The PACKEDFACTORS() batch's segment sums join phase 14's
     checks and are timed there.
 16. Every formula of ``tests/test_expr_ranker.py`` (every factor,
@@ -250,8 +250,22 @@ results are held equal to the same queries on ``device="cpu"``.
     session returns 0, SIGTERM ends it with code 0 within 30 s, a restart
     on its data directory serves the same answers, and ``tools.replay
     --data-dir`` on the card returns 0.
+23. The 200k corpus indexed from text (after phase 22): the native
+    tokenizer library (``manticoresearch_tpu_torch/native``, g++) must
+    build and load; every corpus document rendered as text
+    (``corpus_texts``, about 25M tokens) with ``build_corpus``'s ids and
+    attribute values; its first 20,000 documents built by the port's
+    ``IndexBuilder`` on the native path and on the Python path (the
+    library turned off), every array of ``PackedIndex`` and
+    ``packed_store()`` equal; all of them built on the native path (build
+    and render seconds, seconds per million tokens); phase 3's config-1
+    and config-2 batches through ``SearchIndex(..., device="cuda")`` over
+    it: one K1 launch per batch, docids, weights and total_found equal to
+    phase 5's results with ties normalized (and the count of results
+    equal without normalizing).
 Each batch of phases 5-13 and 15-20 prints its warm walls and one profiled
-run (device time, busy share, kernel launches, host waits and copies).
+run of at most its first 16 queries (4 of a PACKEDFACTORS() or config-5
+batch): device time, busy share, kernel launches, host waits and copies.
 Every check of a result and every launch count raises on a failure; a
 time does not: where the profiler recorded no launch of a kernel that the
 counters saw, the run prints so and times the kernel with CUDA events.
@@ -286,6 +300,11 @@ N_DOCS, VOCAB, AVG_LEN = 200_000, 50_000, 100
 BIG_DOCS = 1_000_000       # bench.py's scale.1000k_docs
 BATCH = 64
 WARM_RUNS = 5
+# queries of a batch run under the profiler: reading back its events takes
+# about 0.45 ms per kernel launch on the card's host, so a whole config-3
+# batch (about 21,600 launches) would take 10 s
+PROFILE_QUERIES = 16
+PROFILE_QUERIES_HEAVY = 4   # PACKEDFACTORS() and config 5: 1,400-3,000 each
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory, published peak
 KERNEL_SOURCE = "manticoresearch_tpu_torch/csrc/bitplane_decode.cu"
 KERNEL_REPLACES = "manticoresearch_tpu/ops/pfor.py:109"
@@ -1087,16 +1106,17 @@ def recall_at_10(name: str, idx: SearchIndex, queries: list,
 
 def time_batch(name: str, idx: SearchIndex, queries: list, runs: int,
                profiled: list | None = None) -> dict:
-    """Warm walls of one batch, then one warm run under the profiler (of
-    ``profiled``, a slice of the batch, where the whole batch would make
-    too many events to read back in time)."""
+    """Warm walls of one batch, then one warm run under the profiler of
+    ``profiled``, a slice of the batch (by default its first
+    ``PROFILE_QUERIES``): the profiler's events of a whole batch take too
+    long to read back."""
     warm = []
     for _ in range(runs):
         t0 = time.perf_counter()
         idx.search_batch(queries)
         torch.cuda.synchronize()
         warm.append(round((time.perf_counter() - t0) * 1e3, 2))
-    profiled = profiled or queries
+    profiled = profiled or queries[:PROFILE_QUERIES]
     prof = profile_batch(idx, profiled)
     print(f"{name}: batch of {len(queries)} on cuda, warm runs (ms) {warm}")
     print(f"{name}: one warm batch of {len(profiled)} under the profiler: wall "
@@ -1234,7 +1254,8 @@ def expr_phase(tag: str, gpu: SearchIndex, cpu: SearchIndex, base: list,
             print(f"{path}: {same} of {len(qs)} top-10 lists (docids and "
                   "weights) equal the default proximity_bm25 ranker's")
         t = time_batch(path, gpu, qs, runs,
-                       qs[:8] if name == "packedfactors" else None)
+                       qs[:PROFILE_QUERIES_HEAVY] if name == "packedfactors"
+                       else None)
         print(f"{path}: {t['launches'] / t['n_profiled']:.1f} kernel "
               "launches per query")
     return max_err
@@ -1546,7 +1567,7 @@ def sharded_phase(gpu: SearchIndex, batches: dict, gpu_results: dict,
         res, _ = run_counted(path, sgpu, qs, launches_by_path, want=1)
         check_equal(path, qs, res, scpu.search_batch(qs))
         check_single(path, qs, res, gpu_results[name])
-        time_batch(path, sgpu, qs, 2, qs[:16])
+        time_batch(path, sgpu, qs, 2, qs[:PROFILE_QUERIES_HEAVY])
     del scpu
     t0 = time.perf_counter()
     fallback_bytes = sum(index_bytes(p) for p in sgpu._per_shard_indexes())
@@ -1647,15 +1668,16 @@ def tie_runs(rows: list, limit: int) -> list:
 
 
 def check_ties(name: str, queries: list, got: list, want: list) -> None:
-    """RT results against one index over the same documents: total_found,
+    """Results against one index over the same documents: total_found,
     and the matches with equal-weight runs normalized (``tie_runs``)."""
     def runs(matches, limit):
         return tie_runs([(m.docid, m.weight) for m in matches], limit)
     for q, g, w in zip(queries, got, want):
-        if (runs(g.matches, q.limit) != runs(w.matches, q.limit)
+        if (g.error is not None or runs(g.matches, q.limit)
+                != runs(w.matches, q.limit)
                 or g.total_found != w.total_found):
-            raise AssertionError(f"{name} {q.match!r}: RT {_summary(g)} != "
-                                 f"one index {_summary(w)}")
+            raise AssertionError(f"{name} {q.match!r}: {_summary(g)} != "
+                                 f"the single index's {_summary(w)}")
     print(f"{name}: {len(queries)} queries equal to the single 200k index "
           "(total_found, weights, docids with ties normalized)")
 
@@ -1959,8 +1981,10 @@ def corpus_texts(rows: list[int]) -> list[str]:
     offsets[1:] = np.cumsum(lens)
     terms = np.minimum(rng.zipf(1.25, int(offsets[-1])) - 1, VOCAB - 1)
     width = max(4, len(str(VOCAB - 1)))
-    return [" ".join(f"t{t:0{width}d}" for t in
-                     terms[offsets[r]:offsets[r + 1]].tolist()) for r in rows]
+    words = [f"t{t:0{width}d}" for t in range(VOCAB)]
+    return [" ".join(map(words.__getitem__,
+                         terms[offsets[r]:offsets[r + 1]].tolist()))
+            for r in rows]
 
 
 class SqlTwins:
@@ -3512,6 +3536,132 @@ def front_phase(packed, batches: dict, gpu_results: dict,
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+TEXT_BOTH_PATHS_DOCS = 20_000   # documents built on both builder paths
+
+
+def load_native() -> str:
+    """Build (g++) and load the native tokenizer library, or raise; its
+    file name."""
+    from manticoresearch_tpu_torch import native
+    if native.get_native_lib() is None:
+        raise RuntimeError("the native tokenizer library did not build "
+                           "(g++ on manticoresearch_tpu_torch/native)")
+    return native.library_path().name
+
+
+def ranked(r) -> tuple:
+    """A result's totals, docids in order with their weights, word stats."""
+    return (r.total, r.total_found, [(m.docid, m.weight) for m in r.matches],
+            [(w.word, w.docs, w.hits) for w in r.word_stats])
+
+
+def text_documents(texts: list) -> list[dict]:
+    """Corpus rows as the documents ``bench_corpus.build_corpus`` indexes:
+    ids row + 1, ``year`` 2000 + row % 25, ``group_id`` row % 100."""
+    return [dict(id=r + 1, content=t, year=2000 + r % 25, group_id=r % 100)
+            for r, t in enumerate(texts)]
+
+
+def build_text_index(docs: list[dict]):
+    """The port's ``IndexBuilder`` over documents with text, on the schema
+    of ``bench_corpus.build_corpus``."""
+    from manticoresearch_tpu_torch.index.builder import IndexBuilder
+    from manticoresearch_tpu_torch.schema import AttrDef, AttrType, Schema
+    b = IndexBuilder(Schema(fields=["content"],
+                            attrs=[AttrDef("year", AttrType.UINT),
+                                   AttrDef("group_id", AttrType.UINT)]))
+    b.add_documents(docs)
+    return b.build()
+
+
+def packed_differences(a, b) -> list[str]:
+    """Names of the ``PackedIndex`` and ``packed_store()`` fields that
+    differ between two builds."""
+    import dataclasses
+
+    def same(x, y) -> bool:
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            return (isinstance(x, np.ndarray) and isinstance(y, np.ndarray)
+                    and x.dtype == y.dtype and np.array_equal(x, y))
+        if isinstance(x, dict) and isinstance(y, dict):
+            return x.keys() == y.keys() and all(same(x[k], y[k]) for k in x)
+        if isinstance(x, (list, tuple)) and isinstance(y, (list, tuple)):
+            return len(x) == len(y) and all(map(same, x, y))
+        return x == y
+    out = [f.name for f in dataclasses.fields(a)
+           if not same(getattr(a, f.name), getattr(b, f.name))]
+    sa, sb = a.packed_store(), b.packed_store()
+    return out + [f"packed_store.{f.name}" for f in dataclasses.fields(sa)
+                  if not same(getattr(sa, f.name), getattr(sb, f.name))]
+
+
+def text_phase(batches: dict, gpu_results: dict, launches_by_path: dict,
+               t_start: float) -> None:
+    """Phase 23: the 200k corpus indexed from text by the port's
+    ``IndexBuilder`` on its native path (``native/tokenizer.cpp``), the
+    first 20,000 documents on both builder paths (equal), and phase 3's
+    batches on the card over the text-built index: one K1 launch per batch
+    and phase 5's answers."""
+    from manticoresearch_tpu_torch import native
+    t_phase = time.perf_counter()
+    print(f"text200k: native library {load_native()} loaded (built in "
+          "phase 2)")
+    t0 = time.perf_counter()
+    docs = text_documents(corpus_texts(list(range(N_DOCS))))
+    print(f"text200k: {len(docs)} documents rendered as text in "
+          f"{time.perf_counter() - t0:.2f} s "
+          f"({sum(len(d['content']) for d in docs) / 2**20:.1f} MiB)")
+
+    n_both = min(TEXT_BOTH_PATHS_DOCS, len(docs))
+    t0 = time.perf_counter()
+    by_native = build_text_index(docs[:n_both])
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with native.turned_off():
+        by_python = build_text_index(docs[:n_both])
+    python_s = time.perf_counter() - t0
+    tokens = len(by_native.hit_packed)
+    print(f"text200k: the first {n_both} documents ({tokens} tokens) built "
+          f"on the native path in {native_s:.2f} s "
+          f"({tokens / native_s / 1e6:.3f} M tokens/s), on the Python path "
+          f"in {python_s:.2f} s ({tokens / python_s / 1e6:.3f} M tokens/s)")
+    diff = packed_differences(by_native, by_python)
+    if diff:
+        raise AssertionError(f"text200k: the native and Python builds "
+                             f"differ in {diff}")
+    print("text200k: both paths give every array of PackedIndex and "
+          "packed_store() equal")
+    del by_native, by_python
+
+    t0 = time.perf_counter()
+    built = build_text_index(docs)
+    build_s = time.perf_counter() - t0
+    tokens = len(built.hit_packed)
+    del docs
+    print(f"text200k: {built.n_docs} docs, {built.n_terms} terms, "
+          f"{built.n_postings} postings, {tokens} tokens built from text on "
+          f"the native path in {build_s:.2f} s "
+          f"({build_s / (tokens / 1e6):.3f} s per M tokens)")
+    t0 = time.perf_counter()
+    built.packed_store()
+    gpu = SearchIndex(built, device="cuda")
+    torch.cuda.synchronize()
+    print(f"text200k: packed store and upload {time.perf_counter() - t0:.2f} "
+          f"s; device memory of the index {index_bytes(gpu) / 2**20:.1f} MiB")
+    for name, qs in batches.items():
+        res, _ = run_counted(f"text200k {name}", gpu, qs, launches_by_path)
+        check_ties(f"text200k {name}", qs, res, gpu_results[name])
+        exact = sum(ranked(r) == ranked(w)
+                    for r, w in zip(res, gpu_results[name]))
+        print(f"text200k {name}: {exact} of {len(qs)} results (docids in "
+              "order, weights, totals, word stats) equal to phase 5's "
+              "without normalizing ties")
+    del gpu, built
+    torch.cuda.empty_cache()
+    print(f"{since(t_start)} phase 23 done in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 async def _stop_all(servers: dict) -> None:
     """Close every listener and cancel its connections' handlers."""
     import asyncio
@@ -3580,6 +3730,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load_library()
     print(f"kernel build (nvcc) and load: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    lib_name = load_native()
+    print(f"native tokenizer library build (g++) and load: "
+          f"{time.perf_counter() - t0:.2f} s ({lib_name})")
 
     # 3. corpus, indexes, plans
     t0 = time.perf_counter()
@@ -3703,6 +3857,10 @@ def main() -> int:
     # 22. the front ends: the MySQL, HTTP and SphinxAPI listeners on the
     # card against CPU twins, then the daemon as a process
     front_phase(packed, batches, gpu_results, launches_by_path, t_start)
+
+    # 23. the 200k corpus indexed from text on the native path (both builder
+    # paths equal on 20k documents), phase 3's batches over it on the card
+    text_phase(batches, gpu_results, launches_by_path, t_start)
     del gpu, cpu, packed, data, batch_items, plans, all_plans
     torch.cuda.empty_cache()
     print(f"{since(t_start)} 200k phases done")

@@ -306,6 +306,28 @@ class IndexBuilder:
                         and not bigram_mode
                         and not index_sp and not index_zones)
 
+        # bulk native path: decode+fold+split+dict-assign per field in ONE
+        # C++ call (native/tokenizer.cpp MtDict) — no per-token Python.
+        native = None
+        ndict = None
+        if trivial_dict and self.tokenizer._ngram_set is None \
+                and not self.tokenizer._features_active \
+                and not self.tok_settings.multiforms:
+            from ..native import get_native_lib
+            native = get_native_lib()
+        if native is not None:
+            import ctypes
+            ndict = native.mt_dict_new()
+            fold_dense = self.tokenizer._native_fold_table()
+            P32 = ctypes.POINTER(ctypes.c_int32)
+            fold_ptr = fold_dense.ctypes.data_as(P32)
+            fold_len = len(fold_dense)
+            hit_cap = 1 << 18
+            big_tid = np.empty(hit_cap, np.int32)
+            big_pk = np.empty(hit_cap, np.int32)
+            hit_cursor = 0
+            seg_rows: list = []     # (rowid, count) per emitted field
+            seg_cnts: list = []
         sent_rows: list[int] = []
         sent_keys: list[int] = []
         para_rows: list[int] = []
@@ -317,6 +339,34 @@ class IndexBuilder:
             for fid, fname in enumerate(schema.fields):
                 text = doc.get(fname, "") or ""
                 stored_fields[fname].append(str(text))
+                if ndict is not None:
+                    s = str(text)
+                    if self.tokenizer._strip is not None:
+                        s = self.tokenizer._strip(s)
+                    raw = s.encode("utf-8")
+                    while True:
+                        cnt = native.mt_dict_tokenize(
+                            ndict, raw, len(raw), fold_ptr, fold_len,
+                            self.tok_settings.min_word_len,
+                            self.tok_settings.overshort_step, fid,
+                            big_tid.ctypes.data + hit_cursor * 4,
+                            big_pk.ctypes.data + hit_cursor * 4,
+                            hit_cap - hit_cursor)
+                        if cnt < hit_cap - hit_cursor:
+                            break
+                        # out of room: grow the arenas, re-run this field
+                        hit_cap *= 2
+                        ng_tid = np.empty(hit_cap, np.int32)
+                        ng_pk = np.empty(hit_cap, np.int32)
+                        ng_tid[:hit_cursor] = big_tid[:hit_cursor]
+                        ng_pk[:hit_cursor] = big_pk[:hit_cursor]
+                        big_tid, big_pk = ng_tid, ng_pk
+                    hit_cursor += cnt
+                    field_lens[rowid, fid] = cnt
+                    if cnt:
+                        seg_rows.append(rowid)
+                        seg_cnts.append(cnt)
+                    continue
                 if trivial_dict:
                     # fast path: no per-token dict processing needed
                     terms, positions = self.tokenizer.tokenize_fast(str(text))
@@ -451,14 +501,39 @@ class IndexBuilder:
 
         # re-map vocab ids to sorted-term order (deterministic; enables
         # wildcard expansion by prefix bisect, like the .spi sorted wordlist)
-        term_strs = sorted(vocab)
-        remap = np.zeros(len(vocab), dtype=np.int64)
-        for new_id, s in enumerate(term_strs):
-            remap[vocab[s]] = new_id
+        if ndict is not None:
+            import ctypes
+            P64 = ctypes.POINTER(ctypes.c_int64)
+            nT = native.mt_dict_n_terms(ndict)
+            plen = native.mt_dict_pool_len(ndict)
+            pool = np.empty(max(int(plen), 1), np.int32)
+            offs = np.empty(nT + 1, np.int64)
+            native.mt_dict_export(ndict, pool.ctypes.data_as(P32),
+                                  offs.ctypes.data_as(P64))
+            native.mt_dict_free(ndict)
+            big = pool[:plen].astype(np.uint32).tobytes().decode(
+                "utf-32-le")
+            build_strs = [big[offs[t]:offs[t + 1]] for t in range(nT)]
+            order_ids = sorted(range(nT), key=lambda t: build_strs[t])
+            term_strs = [build_strs[t] for t in order_ids]
+            remap = np.zeros(max(nT, 1), dtype=np.int64)
+            remap[np.asarray(order_ids, np.int64)] = np.arange(nT)
+            tid_native = big_tid[:hit_cursor].astype(np.int64)
+            tid_arr = remap[tid_native] if len(tid_native) else tid_native
+            row_arr = np.repeat(
+                np.asarray(seg_rows, np.int64),
+                np.asarray(seg_cnts, np.int64)) if seg_rows \
+                else np.zeros(0, np.int64)
+            pk_arr = big_pk[:hit_cursor].astype(np.int64)
+        else:
+            term_strs = sorted(vocab)
+            remap = np.zeros(len(vocab), dtype=np.int64)
+            for new_id, s in enumerate(term_strs):
+                remap[vocab[s]] = new_id
 
-        tid_arr = remap[np.array(hits_tid, dtype=np.int64)] if hits_tid else np.zeros(0, np.int64)
-        row_arr = np.array(hits_row, dtype=np.int64)
-        pk_arr = np.array(hits_packed, dtype=np.int64)
+            tid_arr = remap[np.array(hits_tid, dtype=np.int64)] if hits_tid else np.zeros(0, np.int64)
+            row_arr = np.array(hits_row, dtype=np.int64)
+            pk_arr = np.array(hits_packed, dtype=np.int64)
 
         order = np.lexsort((pk_arr, row_arr, tid_arr))
         tid_arr, row_arr, pk_arr = tid_arr[order], row_arr[order], pk_arr[order]

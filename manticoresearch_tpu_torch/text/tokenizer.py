@@ -14,6 +14,7 @@ each become their own single-codepoint token (ngram_len=1 semantics).
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -156,6 +157,10 @@ class Tokenizer:
         self._features_active = bool(
             self._regexps or self._exceptions or len(self._blend_set)
             or (len(self._boundary_set) and s.phrase_boundary_step))
+        # guards the native scratch buffers from their growth through the
+        # last read of a call's results: one Tokenizer serves every thread
+        # of an index (the native call drops the GIL)
+        self._native_mutex = threading.Lock()
 
     @staticmethod
     def _parse_charset_points(spec: str) -> np.ndarray:
@@ -180,12 +185,26 @@ class Tokenizer:
         idx_c = np.clip(idx, 0, len(self._ngram_set) - 1)
         return self._ngram_set[idx_c] == codes
 
+    def _native_fold_table(self):
+        if not hasattr(self, "_fold_dense"):
+            top = min(max((r.end for r in self._lc.ranges), default=0) + 1,
+                      0x110000)
+            dense = self._lc.fold(np.arange(top, dtype=np.int32))
+            self._fold_dense = np.ascontiguousarray(dense, dtype=np.int32)
+        return self._fold_dense
+
     def tokenize(self, text: str) -> list[Token]:
         """Tokenize one field; returns tokens with 1-based positions."""
         if self._strip is not None:
             text = self._strip(text)
         if self._features_active:
             out = self._tokenize_features(text)
+        elif self._ngram_set is None and not self.settings.multiforms:
+            from ..native import get_native_lib
+            lib = get_native_lib()
+            if lib is not None:
+                return self._tokenize_native(lib, text)
+            out, _ = self._tokenize_plain(text, 0, 0)
         else:
             out, _ = self._tokenize_plain(text, 0, 0)
         if self.settings.multiforms:
@@ -577,11 +596,100 @@ class Tokenizer:
             self._strip = saved
         return toks, events
 
+    def _native_buffers(self, n: int):
+        """Reusable scratch buffers + cached ctypes pointers (the per-call
+        pointer casts dominate for short query strings otherwise)."""
+        import ctypes
+
+        # NOTE: buffers are per-Tokenizer; ctypes calls drop the GIL, so
+        # concurrent threads must hold _native_mutex around the native call
+        cur = getattr(self, "_buf_cap", 0)
+        if n + 1 > cur:
+            import threading
+            cap = max(n + 1, 4096)
+            P = ctypes.POINTER(ctypes.c_int32)
+            self._bufs = [np.empty(cap, np.int32) for _ in range(6)]
+            self._buf_ptrs = [b.ctypes.data_as(P) for b in self._bufs]
+            fold = self._native_fold_table()
+            self._fold_ptr = fold.ctypes.data_as(P)
+            self._fold_len = len(fold)
+            self._buf_cap = cap
+            if not hasattr(self, "_native_mutex"):
+                self._native_mutex = threading.Lock()
+        return self._bufs, self._buf_ptrs
+
+    def _tokenize_native(self, lib, text: str) -> list[Token]:
+        """C++ fast path (native/tokenizer.cpp): UTF-8 decode + fold + split
+        in one pass; token strings sliced out of the folded buffer here."""
+        raw = text.encode("utf-8")
+        if not raw:
+            return []
+        n = len(raw)
+        with self._native_mutex:
+            (codes, toff, tlen, tpos, tcs, tce), ptrs = \
+                self._native_buffers(n)
+            cap = self._buf_cap
+
+            cnt = lib.mt_tokenize(
+                raw, n, self._fold_ptr, self._fold_len,
+                self.settings.min_word_len, self.settings.overshort_step,
+                ptrs[0], cap, ptrs[1], ptrs[2], ptrs[3],
+                ptrs[4], ptrs[5], cap)
+            if not cnt:
+                return []
+            # bulk-decode the whole folded buffer once, slice tokens as
+            # strings
+            total = int(toff[cnt - 1] + tlen[cnt - 1])
+            big = codes[:total].astype(np.uint32).tobytes().decode(
+                "utf-32-le")
+            toff_l = toff[:cnt].tolist()
+            tlen_l = tlen[:cnt].tolist()
+            tpos_l = tpos[:cnt].tolist()
+            tcs_l = tcs[:cnt].tolist()
+            tce_l = tce[:cnt].tolist()
+        return [
+            Token(big[o:o + ln], p, cs, ce)
+            for o, ln, p, cs, ce in zip(toff_l, tlen_l, tpos_l, tcs_l, tce_l)
+        ]
+
     def tokenize_fast(self, text: str):
         """Builder fast path: returns (terms list[str], positions list[int])
-        without Token objects."""
+        without Token objects. Falls back to tokenize() when native code or
+        plain settings are unavailable."""
+        if self._ngram_set is None and not self._features_active \
+                and not self.settings.multiforms:
+            from ..native import get_native_lib
+            lib = get_native_lib()
+            if lib is not None:
+                if self._strip is not None:
+                    text = self._strip(text)
+                return self._tokenize_native_fast(lib, text)
         toks = self.tokenize(text)
         return [t.text for t in toks], [t.position for t in toks]
+
+    def _tokenize_native_fast(self, lib, text: str):
+        raw = text.encode("utf-8")
+        if not raw:
+            return [], []
+        n = len(raw)
+        with self._native_mutex:
+            (codes, toff, tlen, tpos, tcs, tce), ptrs = \
+                self._native_buffers(n)
+            cap = self._buf_cap
+
+            cnt = lib.mt_tokenize(
+                raw, n, self._fold_ptr, self._fold_len,
+                self.settings.min_word_len, self.settings.overshort_step,
+                ptrs[0], cap, ptrs[1], ptrs[2], ptrs[3],
+                ptrs[4], ptrs[5], cap)
+            if not cnt:
+                return [], []
+            total = int(toff[cnt - 1] + tlen[cnt - 1])
+            big = codes[:total].astype(np.uint32).tobytes().decode("utf-32-le")
+            toff_l = toff[:cnt].tolist()
+            tlen_l = tlen[:cnt].tolist()
+            pos_l = tpos[:cnt].tolist()
+        return ([big[o:o + ln] for o, ln in zip(toff_l, tlen_l)], pos_l)
 
     def tokenize_terms(self, text: str) -> list[str]:
         return [t.text for t in self.tokenize(text)]

@@ -8,10 +8,10 @@ what the original gives on the same input:
 - ``IndexBuilder`` on the example.sql documents and on a seeded mixed
   corpus (every attribute kind, two fields, non-ASCII and edge-case text),
   and ``build_from_pretokenized`` on a seeded 2,000-doc bench corpus:
-  every array of ``PackedIndex`` and of ``packed_store()`` equal. The JAX
-  builder takes its native bulk path here where the library is present;
-  the port has only the Python path, so this also holds the two paths
-  equal;
+  every array of ``PackedIndex`` and of ``packed_store()`` equal. Both
+  builders take their native bulk path where g++ builds the library
+  (``tests/test_torch_native.py`` holds the port's Python path equal
+  too);
 - the tokenizer, the dictionary and ``FtQueryParser`` on a fixed list of
   text and query strings: equal tokens, terms and ASTs (or the same error);
 - ``plan_query`` on the queries of ``tests/test_torch_search.py``, and on
@@ -36,10 +36,11 @@ what the original gives on the same input:
   indexer's output directory on ``tests/test_tools.py``'s corpora and
   csv / tsv / kill-list twins (every file byte for byte, arrays.npz
   array by array), ``--rotate`` into a catalog included.
-- the copies made as they are (the replication and cluster servers among
-  them): each module's code equal to its JAX original, statement by
-  statement (the ASTs), except its import statements and its module
-  docstring.
+- the copies made as they are (the replication and cluster servers and
+  the index builder among them): each module's code equal to its JAX
+  original, statement by statement (the ASTs), except its import
+  statements and its module docstring; the tokenizer's too, but for the
+  lock around its native buffers.
 
 Tolerance: exact. Everything compared is an integer, string, boolean or a
 float32 array copied or computed by the same numpy expression.
@@ -1194,7 +1195,7 @@ def test_indexer_rotate_into_catalog_matches_jax(tmp_path):
 _VERBATIM_COPIES = (
     "__init__.py", "config.py", "exec/__init__.py", "exec/distributed.py",
     "exec/qcache.py", "exec/snippets.py", "index/__init__.py",
-    "index/docstore.py", "index/merge.py", "index/pqfilter.py",
+    "index/builder.py", "index/docstore.py", "index/merge.py", "index/pqfilter.py",
     "ops/__init__.py", "parallel/__init__.py", "plugins.py",
     "query/__init__.py", "query/ast.py", "query/explain.py",
     "query/ftparser.py", "query/jsonquery.py", "query/plan.py",
@@ -1263,3 +1264,50 @@ def test_copy_differs_from_jax_by_device_only(rel):
     port = port.replace("manticoresearch_tpu_torch.server.daemon",
                         "manticoresearch_tpu.server.daemon")
     assert port == want
+
+
+# port modules that differ from their JAX original only by a lock: each
+# ``with self._native_mutex:`` block stands for its body, and ``__init__``
+# may create the lock
+_LOCK_COPIES = ("text/tokenizer.py",)
+
+
+class _DropLock(_DropImports):
+    """Unwraps ``with self._native_mutex:`` and drops the lock's creation
+    in ``__init__`` (imports dropped too)."""
+
+    @staticmethod
+    def _is_lock(node) -> bool:
+        return (isinstance(node, _ast.Attribute) and node.attr ==
+                "_native_mutex" and isinstance(node.value, _ast.Name)
+                and node.value.id == "self")
+
+    def visit_With(self, node):
+        self.generic_visit(node)
+        if len(node.items) == 1 and self._is_lock(node.items[0].context_expr):
+            return node.body
+        return node
+
+    def visit_FunctionDef(self, node):
+        self.generic_visit(node)
+        if node.name == "__init__":
+            node.body = [st for st in node.body if not (
+                isinstance(st, _ast.Assign) and len(st.targets) == 1
+                and self._is_lock(st.targets[0]))]
+        return node
+
+
+def _code_without_lock(path: _Path) -> str:
+    tree = _ast.parse(path.read_text(), str(path))
+    if _ast.get_docstring(tree) is not None:
+        tree.body = tree.body[1:]
+    return _ast.dump(_DropLock().visit(tree))
+
+
+@pytest.mark.parametrize("rel", _LOCK_COPIES)
+def test_copy_differs_from_jax_by_lock_only(rel):
+    repo = _Path(__file__).resolve().parent.parent
+    port = repo / "manticoresearch_tpu_torch" / rel
+    jax_src = repo / "manticoresearch_tpu" / rel
+    assert _code_without_imports(port) != _code_without_imports(jax_src)
+    assert _code_without_lock(port) == _code_without_lock(jax_src)
