@@ -147,6 +147,20 @@ results are held equal to the same queries on ``device="cpu"``.
     one K1 launch for the merged queries plus one per shard search of the
     fallback, equal to the CPU twin and to one index over the same
     documents (group keys and counts for the GROUP BY).
+18b. The distributed index in parts (``ShardedIndex(shards,
+    devices=[...])``, one part per mesh position; after phase 18's
+    batches, on its 8 shards): 4 parts of 2 shards and 8 parts of one (the
+    JAX package's layout) on ``cuda:0``, each through
+    ``tools.multichip.check_mesh``: every query merged, exactly one K1
+    launch per part per merged batch (4 or 8 on this card), results equal
+    to phase 18's one-part index and (docids, weights, total_found) to
+    phase 5's single index, warm walls in turns with the one-part index,
+    one profiled batch of 4 queries with each card's busy share. Where
+    more than one card is visible, the same over ``make_mesh`` (up to 8
+    cards, one part each); on one card it prints that it ran none. Then
+    phase 18's route batch on 4 parts of 2 shards: one K1 launch per part
+    for the merged queries plus one per shard search of the fallback,
+    equal to the CPU twin.
 19. The RT index (after phase 18, at 200k): ``build_corpus_shards(200_000,
     50_000, 100, 8)`` as an RT table on the card (``rt_from_packed`` on
     shard 0, ``attach_packed`` on the other 7: 8 disk chunks of 25,000
@@ -295,6 +309,8 @@ from manticoresearch_tpu_torch.ops import groupby as gb
 from manticoresearch_tpu_torch.ops import packed_store as ps
 from manticoresearch_tpu_torch.ops.search import packed_windows, window_kinds
 from manticoresearch_tpu_torch.query.planner import AttrFilterDef
+from manticoresearch_tpu_torch.tools import multichip
+from manticoresearch_tpu_torch.tools.multichip import summary
 
 N_DOCS, VOCAB, AVG_LEN = 200_000, 50_000, 100
 BIG_DOCS = 1_000_000       # bench.py's scale.1000k_docs
@@ -769,12 +785,6 @@ def host_top10(idx: SearchIndex, term: str) -> list[tuple[int, int]]:
                     w[order].tolist()))
 
 
-def _summary(r) -> tuple:
-    return (r.error, r.total, r.total_found,
-            [(m.docid, m.weight, m.attrs) for m in r.matches],
-            [(w.word, w.docs, w.hits) for w in r.word_stats])
-
-
 # --------------------------------------------------------------------------
 # kernel checks and timing
 # --------------------------------------------------------------------------
@@ -981,14 +991,7 @@ def profile_batch(idx: SearchIndex, queries: list[SearchQuery]) -> dict:
     device and its copies (CUDA runtime calls by name), K1's device time
     and events, and the device ops that took the most time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        idx.search_batch(queries)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
+    wall_ms, events = multichip.profiled(idx, queries, ["cuda"])
     on_device = [e for e in events if e.device_type == DeviceType.CUDA]
     dev_ms = sum(e.time_range.elapsed_us() for e in on_device) / 1e3
     k1 = [e.time_range.elapsed_us() for e in on_device
@@ -1076,10 +1079,10 @@ def check_equal(name: str, queries: list, got: list, want: list) -> None:
         if g.error is not None or w.error is not None:
             raise AssertionError(f"{name} {q.match!r} {q.group_by}: error "
                                  f"{g.error or w.error}")
-        if _summary(g) != _summary(w):
+        if summary(g) != summary(w):
             raise AssertionError(f"{name} {q.match!r} {q.filters} "
                                  f"{q.group_by} {q.select}: cuda result "
-                                 f"{_summary(g)} != cpu {_summary(w)}")
+                                 f"{summary(g)} != cpu {summary(w)}")
     found = [r.total_found for r in got]
     print(f"{name}: {len(queries)} queries equal on cuda and cpu; "
           f"total_found min/median/max {min(found)}/"
@@ -1110,12 +1113,7 @@ def time_batch(name: str, idx: SearchIndex, queries: list, runs: int,
     ``profiled``, a slice of the batch (by default its first
     ``PROFILE_QUERIES``): the profiler's events of a whole batch take too
     long to read back."""
-    warm = []
-    for _ in range(runs):
-        t0 = time.perf_counter()
-        idx.search_batch(queries)
-        torch.cuda.synchronize()
-        warm.append(round((time.perf_counter() - t0) * 1e3, 2))
+    warm = multichip.walls(idx, queries, ["cuda"], runs)
     profiled = profiled or queries[:PROFILE_QUERIES]
     prof = profile_batch(idx, profiled)
     print(f"{name}: batch of {len(queries)} on cuda, warm runs (ms) {warm}")
@@ -1503,13 +1501,15 @@ def route_queries() -> list[SearchQuery]:
 
 
 def sharded_launches(sidx, queries: list[SearchQuery]) -> int:
-    """Bit-plane launches one ``ShardedIndex.search_batch`` makes: one for
-    the merged queries where they read packed windows, and one per shard
+    """Bit-plane launches one ``ShardedIndex.search_batch`` makes: one per
+    part for the merged queries where they read packed windows, and one per
+    shard
     search of the fallback queries that reads them (each shard's own
     ``SearchIndex`` decodes its windows in one call)."""
     routes = [sidx._prep(q)[0] for q in queries]
     merged = [q for q, r in zip(queries, routes) if r == "ok"]
-    want = int(any(window_kinds(sidx.plan(q).sig) for q in merged))
+    want = len(sidx.parts) * int(any(window_kinds(sidx.plan(q).sig)
+                                     for q in merged))
     return want + sum(reads_packed(p, [q])
                       for q, r in zip(queries, routes) if r == "fallback"
                       for p in sidx._per_shard_indexes())
@@ -1530,7 +1530,7 @@ def check_single(name: str, queries: list, got: list, want: list) -> None:
                     == [(m.docid, m.weight) for m in w.matches])
         if not same or g.total_found != w.total_found:
             raise AssertionError(f"{name} {q.match!r}: sharded "
-                                 f"{_summary(g)} != one index {_summary(w)}")
+                                 f"{summary(g)} != one index {summary(w)}")
     print(f"{name}: {len(queries)} queries equal to one index over the same "
           "documents on cuda (docids, weights, total_found; group keys and "
           "counts)")
@@ -1552,8 +1552,8 @@ def sharded_phase(gpu: SearchIndex, batches: dict, gpu_results: dict,
     sgpu = ShardedIndex(shards, "cuda")
     torch.cuda.synchronize()
     print(f"config 5 upload to cuda: {time.perf_counter() - t0:.1f} s; "
-          f"device memory of the shards {tree_bytes(sgpu.data) / 2**20:.1f} "
-          f"MiB")
+          f"device memory of the shards "
+          f"{sum(map(tree_bytes, sgpu.parts)) / 2**20:.1f} MiB")
     t0 = time.perf_counter()
     scpu = ShardedIndex(shards, "cpu")
     print(f"config 5 upload to cpu: {time.perf_counter() - t0:.1f} s")
@@ -1569,6 +1569,7 @@ def sharded_phase(gpu: SearchIndex, batches: dict, gpu_results: dict,
         check_single(path, qs, res, gpu_results[name])
         time_batch(path, sgpu, qs, 2, qs[:PROFILE_QUERIES_HEAVY])
     del scpu
+    mesh_phase(shards, sgpu, batches, gpu_results, launches_by_path, t_start)
     t0 = time.perf_counter()
     fallback_bytes = sum(index_bytes(p) for p in sgpu._per_shard_indexes())
     print(f"config 5: the fallback's per-shard indexes (a second upload of "
@@ -1592,10 +1593,53 @@ def sharded_phase(gpu: SearchIndex, batches: dict, gpu_results: dict,
     want = sharded_launches(rgpu, qs)
     res, _ = run_counted("config 5 routes", rgpu, qs, launches_by_path,
                          want_seg=None, want=want)
-    check_equal("config 5 routes", qs, res, rcpu.search_batch(qs))
+    want_cpu = rcpu.search_batch(qs)
+    check_equal("config 5 routes", qs, res, want_cpu)
     check_single("config 5 routes", qs, res, one.search_batch(qs))
     time_batch("config 5 routes", rgpu, qs, 2)
+    # 18b: the same batch on 4 parts of 2 shards on the card
+    rparts = ShardedIndex(rshards, devices=["cuda:0"] * 4)
+    name = "config 5 routes (4 parts on cuda:0)"
+    res, _ = run_counted(name, rparts, qs, launches_by_path, want_seg=None,
+                         want=sharded_launches(rparts, qs))
+    check_equal(name, qs, res, want_cpu)
     print(f"{since(t_start)} phase 18 done in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
+MESH_PARTS = (4, 8)       # phase 18b: parts of phase 18's shards on one card
+
+
+def mesh_phase(shards: list, sgpu, batches: dict, gpu_results: dict,
+               launches_by_path: dict, t_start: float) -> None:
+    """Phase 18b: phase 18's shards in 4 and in 8 parts (the JAX layout,
+    one shard per mesh position) on this card, and, where more than one
+    card is visible, one part per card, each through
+    ``tools.multichip.check_mesh`` against phase 18's one-part index and
+    phase 5's single index."""
+    from manticoresearch_tpu_torch.parallel.sharded import make_mesh
+    t_phase = time.perf_counter()
+    meshes = [["cuda:0"] * n for n in MESH_PARTS]
+    visible = torch.cuda.device_count()
+    if visible > 1:
+        n = min(SHARDS, visible)
+        while SHARDS % n:
+            n -= 1
+        meshes.append(make_mesh(n))
+    else:
+        print("config 5 mesh: one card visible, so no mesh of several "
+              "cards")
+    for devices in meshes:
+        cards = multichip.cards(devices)
+        tag = (f"config 5 in {len(devices)} parts on {cards[0]}"
+               if len(cards) == 1 else f"config 5 on {len(cards)} cards")
+        multichip.check_mesh(shards, devices, batches, sgpu, gpu_results,
+                             runs=2, launches_by_path=launches_by_path,
+                             tag=tag)
+        for d in cards:
+            with torch.cuda.device(d):
+                torch.cuda.empty_cache()
+    print(f"{since(t_start)} phase 18b done in "
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
@@ -1676,8 +1720,8 @@ def check_ties(name: str, queries: list, got: list, want: list) -> None:
         if (g.error is not None or runs(g.matches, q.limit)
                 != runs(w.matches, q.limit)
                 or g.total_found != w.total_found):
-            raise AssertionError(f"{name} {q.match!r}: {_summary(g)} != "
-                                 f"the single index's {_summary(w)}")
+            raise AssertionError(f"{name} {q.match!r}: {summary(g)} != "
+                                 f"the single index's {summary(w)}")
     print(f"{name}: {len(queries)} queries equal to the single 200k index "
           "(total_found, weights, docids with ties normalized)")
 

@@ -1,4 +1,4 @@
-"""Distributed-index search with every shard on one device.
+"""Distributed-index search: shards in parts, one part per device.
 
 Counterpart of ``manticoresearch_tpu/parallel/sharded.py``, with the same
 structure and names. Behavioral model: the reference's distributed index +
@@ -7,26 +7,36 @@ scatter-gather, searchd.cpp:6550-6860; per-agent merged chunks
 searchd.cpp:6737) and the global-IDF aggregation (SetupLocalDF,
 searchd.cpp:5869).
 
-There is no mesh. The shards are the leading dimension of every tensor of
-the upload (``_stack``), laid out as the JAX package lays them out: every
-shard at the common row count ``N = max(n_docs)``, rows past its own
-documents dead (``alive`` false, docid 2^63-1), every posting, hit and
-class array padded by the union's largest slot bucket, each shard's packed
-store built with the union's pack decision and width classes. So one
-plan's per-shard program (``ops.search.build_kernel`` at the plan's
-common slot buckets) runs on every shard, on the JAX package's shapes.
+The mesh is a list of devices (``make_mesh``: the host's cards). Each of
+its positions holds a *part*: a contiguous run of ``len(shards) /
+len(devices)`` shards, the leading dimension of every tensor of that
+part's upload (``_stack``). The JAX package's layout is one shard per
+position; ``device=...`` alone is one part holding every shard. The
+shards are laid out as the JAX package lays them out: every shard at the
+union's common row count ``N = max(n_docs)``, rows past its own documents
+dead (``alive`` false, docid 2^63-1), every posting, hit and class array
+padded by the union's largest slot bucket, each shard's packed store built
+with the union's pack decision and width classes. So one plan's per-shard
+program (``ops.search.build_kernel`` at the plan's common slot buckets)
+runs on every shard of every part, on the JAX package's shapes. One
+process and one host thread drive every device, as one JAX controller
+drives every chip of a mesh.
 
 ``search_batch`` plans each query against the union dictionary (df summed
-over the shards: global IDF), decodes every packed window of every shard
-and every query in one ``decode_grouped`` call (one launch of the
-bit-plane kernel on the card), runs the per-shard program shard by shard
-and query by query, and merges the per-shard top-k chunks on the device
-where the JAX package uses ``all_gather`` and ``lax.sort``: weight desc,
-then docid asc, or the attribute key, then docid asc (``_merge``). The
-whole batch's output is one tensor, fetched once. Grouped, string- or
-JSON-filtered, ZONE-limited and multi-key-ordered queries take the
-fallback, as in the JAX package: per-shard ``SearchIndex`` searches with
-the union's term statistics, merged on the host (``exec.multi``).
+over the shards: global IDF), decodes every packed window of a part's
+shards for every query in one ``decode_lists`` call (one launch of the
+bit-plane kernel per part, on the part's device), runs the per-shard
+program shard by shard and query by query on each shard's device, then
+JAX's per-shard prelude on each part's device (docid halves, the
+attribute sort key; ``_prelude``), copies each part's top-k chunks to the
+first device and sums the match counts there (JAX's ``all_gather`` and
+``psum``), and merges there as ``lax.sort`` does: weight desc, then docid
+asc, or the attribute key, then docid asc (``_merge``). The whole batch's
+output is one tensor, fetched once. Grouped, string- or JSON-filtered,
+ZONE-limited and multi-key-ordered queries take the fallback, as in the
+JAX package: per-shard ``SearchIndex`` searches (each on its shard's
+device) with the union's term statistics, merged on the host
+(``exec.multi``).
 """
 from __future__ import annotations
 
@@ -108,16 +118,40 @@ def _merge_order(first: torch.Tensor, hi: torch.Tensor,
     return o1.gather(1, o2)
 
 
-class ShardedIndex:
-    """A distributed index: documents partitioned over shards that live
-    side by side on ``device`` (the card unless the caller asks for
-    "cpu")."""
+def make_mesh(n_shards: int | None = None) -> list[torch.device]:
+    """The host's first ``n_shards`` cards (every visible card when None),
+    one mesh position each: ``[cuda:0, ..., cuda:n-1]``. Raises where fewer
+    cards are visible than asked; never falls back to one card or the
+    CPU."""
+    visible = torch.cuda.device_count()
+    n = visible if n_shards is None else n_shards
+    if n < 1 or n > visible:
+        raise ValueError(f"a mesh of {n} cards asked for, {visible} visible")
+    return [torch.device("cuda", i) for i in range(n)]
 
-    def __init__(self, shards: list[PackedIndex], device="cuda"):
+
+class ShardedIndex:
+    """A distributed index: documents partitioned over shards, the shards
+    in parts, part p on ``devices[p]`` (the mesh; repeats allowed). With
+    ``devices`` None, one part on ``device`` (the card unless the caller
+    asks for "cpu") holds every shard. Give one of the two, not both."""
+
+    def __init__(self, shards: list[PackedIndex], device=None,
+                 devices=None):
         if not shards:
             raise ValueError("need at least one shard")
+        if device is not None and devices is not None:
+            raise ValueError("give device or devices, not both")
+        self.devices = [torch.device(d)
+                        for d in (devices if devices is not None
+                                  else [device or "cuda"])]
+        if not self.devices or len(shards) % len(self.devices):
+            raise ValueError(f"{len(shards)} shards for "
+                             f"{len(self.devices)} mesh devices")
         self.shards = shards
-        self.device = torch.device(device)
+        # the merge runs, and the batch's output lands, on the first
+        self.device = self.devices[0]
+        self.per_part = len(shards) // len(self.devices)
         self.union = _UnionView(shards)
         self.schema: Schema = shards[0].schema
         self.tokenizer = Tokenizer(shards[0].tokenizer_settings)
@@ -128,9 +162,11 @@ class ShardedIndex:
 
     # ------------------------------------------------------------------
     def _stack(self) -> None:
-        """Upload every shard as one row of [D, ...] tensors (the JAX
-        package's layout); ``_views[d]`` is shard d's data dict of views,
-        under the keys the search program reads."""
+        """Lay every shard out as one row of [D, ...] arrays (the JAX
+        package's layout) and upload rows ``p * per_part`` on as
+        ``parts[p]`` to ``devices[p]``; ``_views[d]`` is shard d's data
+        dict of views into its part, under the keys the search program
+        reads."""
         shards = self.shards
         D = len(shards)
         N = max(s.n_docs for s in shards)
@@ -284,16 +320,22 @@ class ShardedIndex:
         data["res_tfq"] = res_q
         data["res_fieldmask"] = res_f
 
-        def put(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(a).to(self.device)
+        spp = self.per_part
 
-        self.data = {k: put(v) for k, v in data.items()}
-        self.data["attrs"] = {k: put(v) for k, v in attrs.items()}
-        self._views = [
-            {**{k: v[d] for k, v in self.data.items() if k != "attrs"},
-             "attrs": {k: v[d] for k, v in self.data["attrs"].items()},
-             "mva_offsets": {}, "mva_values": {}}
-            for d in range(D)]
+        def put(a: np.ndarray, p: int) -> torch.Tensor:
+            return torch.from_numpy(a[p * spp:(p + 1) * spp]).to(
+                self.devices[p])
+
+        self.parts = [{**{k: put(v, p) for k, v in data.items()},
+                       "attrs": {k: put(v, p) for k, v in attrs.items()}}
+                      for p in range(len(self.devices))]
+
+        def view(d: int) -> dict:
+            part, j = self.parts[d // spp], d % spp
+            return {**{k: v[j] for k, v in part.items() if k != "attrs"},
+                    "attrs": {k: v[j] for k, v in part["attrs"].items()},
+                    "mva_offsets": {}, "mva_values": {}}
+        self._views = [view(d) for d in range(D)]
 
     # ------------------------------------------------------------------
     def _merge_k(self, sig) -> tuple[int, int]:
@@ -301,32 +343,31 @@ class ShardedIndex:
         k_local = max(1, min(sig.k, self.n_common))
         return k_local, min(sig.k, len(self.shards) * k_local)
 
-    def _merge(self, order: tuple, rid: torch.Tensor, w: torch.Tensor,
-               found: torch.Tensor, k: int) -> torch.Tensor:
-        """Merge per-shard top-k chunks (rid, w: [B, D, k_local], found:
-        [B, D]) into the batched layout [B, 5k+1] = weight[k] ++
-        docid_hi[k] ++ docid_lo[k] ++ rowid[k] ++ shard[k] ++ found (one
-        pre-merged chunk per shard, as agents return one chunk each,
-        searchd.cpp:6737; merge = MinimizeAggrResult semantics,
-        searchd.cpp:4816,3990)."""
-        B, D, kl = rid.shape
+    def _prelude(self, p: int, order: tuple, rid: torch.Tensor,
+                 w: torch.Tensor, found: torch.Tensor) -> tuple:
+        """JAX's per-shard prelude, on part p's device, for the part's
+        top-k chunks (rid, w: [B, S, k_local], found: [B, S], S =
+        ``per_part``): -> (first, hi, lo, w, rid, found), ``first`` the
+        merge's leading sort key, hi / lo the docid halves."""
+        B, S, kl = rid.shape
         dev = rid.device
-        shard = torch.arange(D, device=dev).view(1, D, 1)
+        part = self.parts[p]
+        shard = torch.arange(S, device=dev).view(1, S, 1)
         r64 = rid.to(torch.int64)
-        hi = self.data["docid_hi"][shard, r64]
-        lo = self.data["docid_lo"][shard, r64]
+        hi = part["docid_hi"][shard, r64]
+        lo = part["docid_lo"][shard, r64]
         if order[0] == "attr":
             # attr-ordered merge: the sort key (numeric attr value) rides
             # the gather; ties break (docid asc) like the reference sorter
             # comparators (sphinxsort.cpp)
             _, name, asc, is_float = order
-            col = self.data["attrs"][name]
+            col = part["attrs"][name]
             keyv = col[shard, r64.clamp(0, col.shape[1] - 1)]
             # entries past the shard's own match count are garbage rows
             # (the attr-ordered kernel fills the chunk): they must sort
             # last in the merge
             valid = (torch.arange(kl, device=dev).view(1, 1, kl)
-                     < found.view(B, D, 1))
+                     < found.view(B, S, 1))
             if is_float:
                 # lax.sort's float order: -0.0 == +0.0, NaN after +inf
                 first = _float_order_key(torch.where(
@@ -337,6 +378,24 @@ class ShardedIndex:
         else:
             # merged order: weight desc, docid asc
             first = ~w
+        return first, hi, lo, w, rid, found
+
+    def _merge(self, chunks: list[tuple], k: int) -> torch.Tensor:
+        """Gather the parts' ``_prelude`` chunks on the first device (JAX's
+        ``all_gather``; ``found`` summed there, its ``psum``) and merge the
+        per-shard top-k chunks into the batched layout [B, 5k+1] = weight[k]
+        ++ docid_hi[k] ++ docid_lo[k] ++ rowid[k] ++ shard[k] ++ found (one
+        pre-merged chunk per shard, as agents return one chunk each,
+        searchd.cpp:6737; merge = MinimizeAggrResult semantics,
+        searchd.cpp:4816,3990)."""
+        def gather(j: int) -> torch.Tensor:
+            if len(chunks) == 1:     # one part: nothing to copy or join
+                return chunks[0][j]
+            return torch.cat([c[j].to(self.device, non_blocking=True)
+                              for c in chunks], dim=1)
+        first, hi, lo, w, rid, found = (gather(j) for j in range(6))
+        B, D, kl = rid.shape
+        shard = torch.arange(D, device=rid.device).view(1, D, 1)
         cols = [w, hi, lo, rid, shard.expand(B, D, kl).to(torch.int32)]
         cols = [c.reshape(B, D * kl) for c in cols]
         perm = _merge_order(first.reshape(B, D * kl), cols[1], cols[2])
@@ -346,11 +405,12 @@ class ShardedIndex:
 
     # ------------------------------------------------------------------
     def _per_shard_indexes(self):
-        """Lazy per-shard SearchIndex list (a second upload of every shard;
-        built on demand for the queries whose merge runs host-side)."""
+        """Lazy per-shard SearchIndex list (a second upload of every shard,
+        each on its part's device; built on demand for the queries whose
+        merge runs host-side)."""
         if not hasattr(self, "_shard_idx"):
-            self._shard_idx = [SearchIndex(p, self.device)
-                               for p in self.shards]
+            self._shard_idx = [SearchIndex(p, self.devices[d // self.per_part])
+                               for d, p in enumerate(self.shards)]
         return self._shard_idx
 
     def global_stats(self):
@@ -489,7 +549,7 @@ class ShardedIndex:
                         for s in range(Sreal))
         slot_hb = tuple(_next_pow4(int(hlengths[:, s].max()), 1024)
                         for s in range(Sreal))
-        Hmax = int(self.data["hit_packed"].shape[1])
+        Hmax = int(self.parts[0]["hit_packed"].shape[1])
         n_hit_iters = max(1, math.ceil(math.log2(max(Hmax, 2)))) + 1
 
         rt_shard = {
@@ -515,10 +575,11 @@ class ShardedIndex:
         return "ok", (cq, rt_shard, rt_repl, slot_pb, slot_hb, n_hit_iters)
 
     def search_batch(self, queries):
-        """Batched distributed execution: one grouped decode of every
-        packed window of every shard and query (one bit-plane launch on
-        the card), the per-shard program per shard and query, plan shape
-        by plan shape, the merge on the device, and one fetch of every
+        """Batched distributed execution: per part, one grouped decode of
+        every packed window of its shards and every query (one bit-plane
+        launch on the part's device); the per-shard program per shard and
+        query, plan shape by plan shape; the prelude on each part's device,
+        the gather and the merge on the first device; one fetch of every
         output row (the agent fan-out of every query in one round)."""
         t0 = time.perf_counter()
         results: list = [None] * len(queries)
@@ -537,27 +598,36 @@ class ShardedIndex:
                                   []).append(i)
         if not groups:
             return results
-        D = len(self.shards)
+        D, spp = len(self.shards), self.per_part
+        part_shards = [range(p * spp, (p + 1) * spp)
+                       for p in range(len(self.parts))]
         # per query and shard, the runtime the per-shard program reads
         rts = {i: [{**{k: v[d] for k, v in b[1].items()}, **b[2]}
                    for d in range(D)] for i, b in bundles.items()}
-        order = [(i, d) for idxs in groups.values() for i in idxs
-                 for d in range(D)]
-        decoded = dict(zip(order, decode_lists([
-            packed_windows(bundles[i][0].sig, bundles[i][3], self._views[d],
-                           rts[i][d]) for i, d in order])))
+        decoded = {}
+        for ds in part_shards:
+            order = [(i, d) for idxs in groups.values() for i in idxs
+                     for d in ds]
+            decoded.update(zip(order, decode_lists([
+                packed_windows(bundles[i][0].sig, bundles[i][3],
+                               self._views[d], rts[i][d])
+                for i, d in order])))
         N = self.n_common
         F = max(self.schema.n_fields, 1)
         outs = []
         for (sig, pb, hb, nhi), idxs in groups.items():
             k_local, k = self._merge_k(sig)
             kern = build_kernel(replace(sig, k=k_local), N, F, pb, hb, nhi)
-            per = [[kern(self._views[d], rts[i][d], decoded[i, d])
-                    for d in range(D)] for i in idxs]
-            rid, w, found = (torch.stack([torch.stack([o[name] for o in row])
-                                          for row in per])
-                             for name in ("rowid", "weight", "found"))
-            outs.append((idxs, k, self._merge(sig.order, rid, w, found, k)))
+            chunks = []
+            for p, ds in enumerate(part_shards):
+                per = [[kern(self._views[d], rts[i][d], decoded[i, d])
+                        for d in ds] for i in idxs]
+                rid, w, found = (torch.stack([torch.stack([o[name]
+                                                           for o in row])
+                                              for row in per])
+                                 for name in ("rowid", "weight", "found"))
+                chunks.append(self._prelude(p, sig.order, rid, w, found))
+            outs.append((idxs, k, self._merge(chunks, k)))
         flat = torch.cat([o.reshape(-1) for _, _, o in outs]).cpu().numpy()
         off = 0
         for idxs, k, o in outs:
