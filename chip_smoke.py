@@ -11,10 +11,14 @@ is then not 0. Every path is driven through ``SearchIndex.search_batch``
 query in phase 19, ``Session.execute`` statement by statement in phases
 20 and 21, a listener's request in phase 22) on ``device="cuda"`` with
 the launch counters set to 0 just before and read just after, and its
-results are held equal to the same queries on ``device="cpu"``.
+results are held equal to the same queries on ``device="cpu"`` (in phase
+24, the bench's own runs, to its host model of the scoring).
 
 1. Require CUDA. Print the card (``nvidia-smi`` name and power limit) and
-   the torch and CUDA versions.
+   the torch and CUDA versions. Start the host-build process (spawned,
+   never on the card): it builds phase 18's shards (which phases 19 and
+   20 copy) and phase 9's 1M corpus with its packed store while this
+   process drives the card; it is stopped when the run ends.
 2. Build the CUDA kernels from ``manticoresearch_tpu_torch/csrc`` (timed).
 3. The dense main path at 200k documents
    (``bench_corpus.build_corpus(200_000, 50_000, 100)``, the port's copy
@@ -188,8 +192,8 @@ results are held equal to the same queries on ``device="cpu"``.
     is expected) and equal to the twin's (time fields masked by name:
     SHOW META ``time``, SHOW STATUS ``uptime``, SHOW THREADS and SHOW
     PROFILE times), the result cache off. 1: phase 3's 200k corpus saved
-    with ``save_packed`` and loaded by ``IMPORT TABLE docs``; the first 16
-    config-1 and 16 config-2 queries as ``SELECT id, WEIGHT() ... LIMIT
+    with ``save_packed`` and loaded by ``IMPORT TABLE docs``; the first 8
+    config-1 and 8 config-2 queries as ``SELECT id, WEIGHT() ... LIMIT
     10`` with SHOW META, equal to phase 5's ``SearchIndex`` results (ties
     normalized, total_found from SHOW META), again under ``OPTION
     ranker=none``; 4 ``WorkloadGen.config4`` draws as GROUP BY with
@@ -203,7 +207,7 @@ results are held equal to the same queries on ``device="cpu"``.
     with 1,000 stored queries from config-1 and config-2 draws (about 10%
     with a ``year > N`` filter) and one CALL PQ over 128 corpus documents
     as JSON. 4: the 8 shards of phase 18 by IMPORT TABLE and a
-    distributed table over them: the 32 SELECTs, equal to the twin, with
+    distributed table over them: the 16 SELECTs, equal to the twin, with
     ``docs``'s total_found and, under ``ranker=none``, its rows (each
     local part ranks with its own term statistics, so ranked weights
     differ from one table's); then a port ``AgentServer(port=0)`` on a
@@ -227,7 +231,7 @@ results are held equal to the same queries on ``device="cpu"``.
     statements of at most 24 rows, through ``cluster:table``) from each
     node in turn, B's REPLACEs on the ids A's
     just replaced, each timed until both card nodes have applied it; every
-    node of both clusters at the same sequence number. Then phase 20's 32
+    node of both clusters at the same sequence number. Then phase 20's 16
     SELECTs and 8 GROUP BYs, each with SHOW META, on node A and on node B,
     each statement equal to its CPU twin with the launches counted from
     the plans (``SqlTwins``), and node A's results equal to node B's.
@@ -240,10 +244,10 @@ results are held equal to the same queries on ``device="cpu"``.
     ``time_ms``), each card request counted as ``SqlTwins`` counts a
     statement. The 200k corpus by ``save_packed`` and IMPORT TABLE over
     MySQL;
-    the first 16 config-1 and 16 config-2 queries as MySQL ``SELECT id,
+    the first 8 config-1 and 8 config-2 queries as MySQL ``SELECT id,
     WEIGHT() ... LIMIT 10`` with SHOW META, as HTTP ``/sql`` and
     ``/json/search`` (``query_string``) and as one SphinxAPI multi-query
-    of 32, each protocol's docids and weights equal to phase 5's (ties
+    of 16, each protocol's docids and weights equal to phase 5's (ties
     normalized), and that multi-query from 4 connections at once (the
     listener searches from as many worker threads), each answer equal to
     the one-client answer; 4 ``WorkloadGen.config4`` draws with
@@ -258,7 +262,7 @@ results are held equal to the same queries on ``device="cpu"``.
     the tables' search share per protocol, one profiled ``/sql`` request.
     2: ``python -m manticoresearch_tpu_torch.server.daemon`` as a process
     on three free ports: IMPORT TABLE over ``/sql`` (the card's free
-    memory must fall by at least 0.9 of the table's device bytes), the 32
+    memory must fall by at least 0.9 of the table's device bytes), the 16
     SELECTs over MySQL and ``/sql`` and the multi-query equal to part 1's
     card answers, ``tools.replay --host`` of a query log written by a CPU
     session returns 0, SIGTERM ends it with code 0 within 30 s, a restart
@@ -277,6 +281,20 @@ results are held equal to the same queries on ``device="cpu"``.
     it: one K1 launch per batch, docids, weights and total_found equal to
     phase 5's results with ties normalized (and the count of results
     equal without normalizing).
+24. The port's bench (after phase 23): ``tools.bench.main`` in this
+    process, building its own corpus (bench.py's default, the same as
+    phase 3's) with ``--batches 1 --budget 5 --scale-docs ""``: the parity
+    gate's 24 searches, a warm-up and a measured batch of each of configs
+    1-4 (128 queries; 32 for config 4) and config 5 on ``min(8, cards)``
+    shards, one per card. Every ``SearchIndex`` round (``_drive``) and
+    ``ShardedIndex.search_batch`` is counted from 0: one K1 launch where
+    it reads packed windows, no plain decode or sum. The bench's JSON
+    line is printed (``bench line: ...``) and must hold bench.py's keys
+    plus ``device`` (the card's ``nvidia-smi`` name and power limit and
+    the number of cards), ``recall_at_10`` 1.0 and every config measured.
+    Then the host planner's share of a bench batch: the wall of a fresh
+    config-1 (and config-2) batch of 128, and of another planned first
+    (the plans' time, then the batch's).
 Each batch of phases 5-13 and 15-20 prints its warm walls and one profiled
 run of at most its first 16 queries (4 of a PACKEDFACTORS() or config-5
 batch): device time, busy share, kernel launches, host waits and copies.
@@ -290,7 +308,9 @@ kernels' numbers, the card's name and power limit, then
 """
 from __future__ import annotations
 
+import copy
 import json
+import multiprocessing
 import os
 import struct
 import subprocess
@@ -1537,17 +1557,16 @@ def check_single(name: str, queries: list, got: list, want: list) -> None:
 
 
 def sharded_phase(gpu: SearchIndex, batches: dict, gpu_results: dict,
-                  launches_by_path: dict, t_start: float) -> None:
+                  launches_by_path: dict, t_start: float,
+                  shards_job) -> None:
     """Phase 18: bench config 5 (8 shards of the 200k corpus on one card)
     and a batch of every route on a small sharded index."""
     from manticoresearch_tpu_torch.parallel.sharded import ShardedIndex
     t_phase = time.perf_counter()
-    t0 = time.perf_counter()
-    shards = bench_corpus.build_corpus_shards(N_DOCS, VOCAB, AVG_LEN, SHARDS)
+    shards = host_built_shards(shards_job)
     print(f"config 5: {len(shards)} shards of "
           f"{sorted({s.n_docs for s in shards})} docs, "
-          f"{sum(s.n_postings for s in shards)} postings, built in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{sum(s.n_postings for s in shards)} postings")
     t0 = time.perf_counter()
     sgpu = ShardedIndex(shards, "cuda")
     torch.cuda.synchronize()
@@ -1861,22 +1880,19 @@ def rt_binlog_check(t_start: float) -> None:
 
 
 def rt_phase(packed, batches: dict, gpu_results: dict,
-             launches_by_path: dict, t_start: float) -> None:
+             launches_by_path: dict, t_start: float, shards_job) -> None:
     """Phase 19: an RT table of the 200k corpus in 8 disk chunks on the
     card, in three states (no writes; after a write stream; after FLUSH
     RAMCHUNK and OPTIMIZE), each against its CPU twin; then a binlog
     reload."""
-    import copy
     from manticoresearch_tpu_torch.exec import multi
     from manticoresearch_tpu_torch.index.rt import RtIndex, rt_from_packed
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    shards = bench_corpus.build_corpus_shards(N_DOCS, VOCAB, AVG_LEN, SHARDS)
-    twin_shards = copy.deepcopy(shards)
+    shards = host_built_shards(shards_job)
+    twin_shards = host_built_shards(shards_job)
     print(f"rt: {len(shards)} chunks of {sorted({s.n_docs for s in shards})} "
-          f"docs built (and copied for the CPU twin) in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"docs, and a copy for the CPU twin")
     twins = {}
     for dev, parts in (("cuda", shards), ("cpu", twin_shards)):
         t0 = time.perf_counter()
@@ -1975,7 +1991,7 @@ def rt_phase(packed, batches: dict, gpu_results: dict,
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
-SQL_QUERIES = 16         # of each of phase 3's batches
+SQL_QUERIES = 8          # of each of phase 3's batches
 SQL_GROUPED = 4          # WorkloadGen.config4 draws (and their AVG twins)
 SQL_PQ_QUERIES = 1000    # stored percolate queries
 SQL_PQ_DOCS = 128        # documents of the CALL PQ
@@ -2215,7 +2231,8 @@ def sql_select_meta(twins: SqlTwins, sql: str) -> tuple:
 
 
 def session_phase(packed, batches: dict, gpu_results: dict,
-                  launches_by_path: dict, t_start: float) -> None:
+                  launches_by_path: dict, t_start: float,
+                  shards_job) -> None:
     """Phase 20: the SphinxQL session layer on the card against its CPU
     twin: a 200k table by IMPORT TABLE, a write stream, percolate queries,
     distributed tables of 8 shards with and without an agent."""
@@ -2299,7 +2316,7 @@ def session_phase(packed, batches: dict, gpu_results: dict,
         print(f"session select: warm wall per SELECT on cuda, the first 8 "
               f"(ms): {warm}")
         twins.step("select (200k docs)", launches_by_path, t_start)
-        time_batch("session select (200k docs, 32 SELECTs)",
+        time_batch(f"session select (200k docs, {len(sqls)} SELECTs)",
                    SqlBatch(twins.gpu), sqls, SQL_WARM_RUNS, sqls[:1])
 
         # 2. a write stream by SphinxQL
@@ -2393,12 +2410,9 @@ def session_phase(packed, batches: dict, gpu_results: dict,
 
         # 4. distributed: 8 local shards, then 6 local shards and an agent
         t0 = time.perf_counter()
-        shards = bench_corpus.build_corpus_shards(N_DOCS, VOCAB, AVG_LEN,
-                                                  SHARDS)
-        for i, sh in enumerate(shards):
+        for i, sh in enumerate(shards_job.get()[0]):
             save_packed(sh, os.path.join(tmp, f"s{i}"))
-        del shards
-        print(f"session: {SHARDS} shards built and saved in "
+        print(f"session: {SHARDS} shards saved in "
               f"{time.perf_counter() - t0:.1f} s")
         for i in range(SHARDS):
             twins.run(f"IMPORT TABLE s{i} FROM '{os.path.join(tmp, f's{i}')}'")
@@ -2683,7 +2697,7 @@ def cluster_phase(packed, batches: dict, launches_by_path: dict,
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
-FRONT_QUERIES = 16       # of each of phase 3's batches
+FRONT_QUERIES = 8        # of each of phase 3's batches
 FRONT_GROUPED = 4        # WorkloadGen.config4 draws, with AVG(year)
 FRONT_TXNS = 4           # MySQL write transactions of RT_OPS operations
 FRONT_ROWS = 24          # rows per REPLACE / INSERT statement
@@ -3279,7 +3293,7 @@ def front_phase(packed, batches: dict, gpu_results: dict,
         t1, t2 = qs[0].match, qs[FRONT_QUERIES].match.split()[0]
 
         def selects(tag: str, check: bool) -> dict:
-            """The 32 queries through every protocol (and the GROUP BYs
+            """The 16 queries through every protocol (and the GROUP BYs
             over MySQL and /sql); -> the card's answers by protocol."""
             out: dict = {"mysql": [], "sql": [], "json": []}
             walls: dict = {}
@@ -3454,7 +3468,7 @@ def front_phase(packed, batches: dict, gpu_results: dict,
                    HttpSqlBatch(port["cuda"]["http"]), sqls[:8],
                    FRONT_WARM_RUNS, sqls[:1])
 
-        # the query log of the 32 SELECTs, written by a CPU session
+        # the query log of the 16 SELECTs, written by a CPU session
         log = io.StringIO()
         sess = Session(cats["cpu"])
         sess.query_log = log
@@ -3706,6 +3720,124 @@ def text_phase(batches: dict, gpu_results: dict, launches_by_path: dict,
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 24: the bench at its defaults but one measured batch per config,
+# a 5 s budget and no scale section
+BENCH_ARGS = ["--batches", "1", "--budget", "5", "--scale-docs", "",
+              "--verbose"]
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "recall_at_10",
+              "configs", "scale", "latency_ms", "utilization", "device"}
+BENCH_MAINS = ("1_single_term_bm25", "2_boolean_filters",
+               "3_phrase_proximity", "4_facet_groupby")
+BENCH_BATCH = 128          # bench.py's --batch
+
+
+def bench_phase(smi: str, launches_by_path: dict, t_start: float) -> None:
+    """Phase 24: the port's bench (``tools/bench.py``) at phase 3's corpus
+    size, with every ``SearchIndex`` round and ``ShardedIndex`` batch
+    counted: its JSON line must hold bench.py's keys and the card's
+    ``device``, ``recall_at_10`` 1.0 and every config measured, and each
+    round one K1 launch where it reads packed windows."""
+    import contextlib
+    import io
+    from manticoresearch_tpu_torch.parallel.sharded import ShardedIndex
+    from manticoresearch_tpu_torch.tools import bench
+    t_phase = time.perf_counter()
+    calls = []     # (kind, index, queries, K1 launches, plain decodes)
+    drive, sharded = SearchIndex._drive, ShardedIndex.search_batch
+
+    def counted(kind, orig):
+        def wrapper(self, queries):
+            ps.LAUNCHES.reset()
+            gb.LAUNCHES.reset()
+            out = orig(self, queries)
+            calls.append((kind, self, list(queries), ps.LAUNCHES.kernel,
+                          ps.LAUNCHES.plain + gb.LAUNCHES.plain))
+            return out
+        return wrapper
+
+    SearchIndex._drive = counted("single", drive)
+    ShardedIndex.search_batch = counted("sharded", sharded)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = bench.main(["--docs", str(N_DOCS), "--vocab", str(VOCAB),
+                             "--avg-len", str(AVG_LEN)] + BENCH_ARGS)
+    finally:
+        SearchIndex._drive, ShardedIndex.search_batch = drive, sharded
+    line = buf.getvalue().strip()
+    print(f"bench line: {line}")
+    if rc != 0:
+        raise AssertionError(f"bench: exit code {rc}")
+    out = json.loads(line)
+    D = min(8, torch.cuda.device_count())
+    want_cfgs = set(BENCH_MAINS) | {f"5_distributed_{D}shard"}
+    name, power = (s.strip() for s in smi.split(",", 1))
+    if set(out) != BENCH_KEYS:
+        raise AssertionError(f"bench: keys {sorted(out)}, expected "
+                             f"{sorted(BENCH_KEYS)}")
+    if out["recall_at_10"] != 1.0:
+        raise AssertionError(f"bench: recall_at_10 {out['recall_at_10']}")
+    if set(out["configs"]) != want_cfgs or not all(
+            isinstance(v, float) and v > 0 for v in out["configs"].values()):
+        raise AssertionError(f"bench: configs {out['configs']}")
+    if out["device"] != {"name": name, "power_limit": power,
+                         "count": torch.cuda.device_count()}:
+        raise AssertionError(f"bench: device {out['device']}, card {smi}")
+    if set(out["latency_ms"]) != {"batch_p50_ms", "batch_p99_ms"}:
+        raise AssertionError(f"bench: latency_ms {out['latency_ms']}")
+
+    paths = Counter()
+    n_batches = 0
+    for kind, idx, qs, k1, plain in calls:
+        want = (sharded_launches(idx, qs) if kind == "sharded"
+                else int(reads_packed(idx, qs)))
+        if k1 != want or plain:
+            raise AssertionError(f"bench {kind} round of {len(qs)}: {k1} K1 "
+                                 f"launches and {plain} plain, expected "
+                                 f"{want} and 0")
+        path = ("bench config 5" if kind == "sharded" else
+                "bench configs 1-4" if len(qs) > 1 else "bench parity")
+        paths[path] += k1
+        n_batches += kind == "single" and len(qs) > 1
+    # --batches 1: one warm-up and one measured batch per config
+    if n_batches != 2 * len(BENCH_MAINS) or paths["bench configs 1-4"] != \
+            n_batches:
+        raise AssertionError(f"bench: {n_batches} batches of configs 1-4 "
+                             f"with {paths['bench configs 1-4']} K1 "
+                             "launches, expected 8 and 8")
+    launches_by_path.update(paths)
+    print(f"bench: {len(calls)} rounds counted, K1 launches {dict(paths)}: "
+          "one per round that reads packed windows; configs "
+          f"{out['configs']}, recall_at_10 {out['recall_at_10']}")
+
+    # the host planner's share of a bench batch: every measured batch is a
+    # fresh draw, so its wall includes planning each query
+    idx = next(c[1] for c in reversed(calls) if c[0] == "single")
+    gen = bench_corpus.WorkloadGen(np.random.RandomState(31), VOCAB,
+                                   idx.packed)
+    for name, draw in (("config1", gen.config1), ("config2", gen.config2)):
+        fresh, planned = draw(BENCH_BATCH)[1], draw(BENCH_BATCH)[1]
+        t0 = time.perf_counter()
+        idx.search_batch(fresh)
+        torch.cuda.synchronize()
+        fresh_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        for q in planned:
+            idx.plan(q)
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        idx.search_batch(planned)
+        torch.cuda.synchronize()
+        print(f"bench {name}: a fresh batch of {BENCH_BATCH} "
+              f"{fresh_ms:.2f} ms; another fresh batch planned first: "
+              f"plans {plan_ms:.2f} ms, then the batch "
+              f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
+    del calls, idx
+    torch.cuda.empty_cache()
+    print(f"{since(t_start)} phase 24 done in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 async def _stop_all(servers: dict) -> None:
     """Close every listener and cancel its connections' handlers."""
     import asyncio
@@ -3752,11 +3884,53 @@ def since(t_start: float) -> str:
 
 
 # --------------------------------------------------------------------------
+def build_shards() -> tuple[list, float]:
+    """Bench config 5's shards of the 200k corpus (phases 18-20) and their
+    build seconds."""
+    t0 = time.perf_counter()
+    shards = bench_corpus.build_corpus_shards(N_DOCS, VOCAB, AVG_LEN, SHARDS)
+    return shards, time.perf_counter() - t0
+
+
+def build_big(n_docs: int) -> tuple:
+    """Phase 9's corpus with its packed store, and the seconds of each."""
+    t0 = time.perf_counter()
+    big = bench_corpus.build_corpus(n_docs, VOCAB, AVG_LEN)
+    t1 = time.perf_counter()
+    big.packed_store()
+    return big, t1 - t0, time.perf_counter() - t1
+
+
+def host_built_shards(shards_job) -> list:
+    """A copy of the host-build process's shards, for a phase to own."""
+    t0 = time.perf_counter()
+    shards, build_s = shards_job.get()
+    shards = copy.deepcopy(shards)
+    print(f"shards built in {build_s:.1f} s by the host-build process; "
+          f"waited and copied in {time.perf_counter() - t0:.1f} s here")
+    return shards
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this smoke "
               "run needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    # the shards of phases 18-20 and the 1M corpus of phase 9 are about two
+    # minutes of host work: a process of their own (spawned, so it never
+    # touches the card) builds them while this one drives the card
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        return smoke(pool.apply_async(build_shards),
+                     pool.apply_async(build_big, (BIG_DOCS,)))
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def smoke(shards_job, big_job) -> int:
+    """The phases, in order; ``shards_job`` and ``big_job`` are the
+    host-build process's results (``build_shards``, ``build_big``)."""
     t_start = time.perf_counter()
 
     # 1. the card
@@ -3884,15 +4058,18 @@ def main() -> int:
 
     # 18. config 5: the distributed index, 8 shards of the 200k corpus on
     # the card, against the CPU twin and the single 200k index
-    sharded_phase(gpu, batches, gpu_results, launches_by_path, t_start)
+    sharded_phase(gpu, batches, gpu_results, launches_by_path, t_start,
+                  shards_job)
 
     # 19. the RT index: 8 disk chunks of the 200k corpus, a write stream,
     # FLUSH RAMCHUNK and OPTIMIZE, against the CPU twin; a binlog reload
-    rt_phase(packed, batches, gpu_results, launches_by_path, t_start)
+    rt_phase(packed, batches, gpu_results, launches_by_path, t_start,
+             shards_job)
 
     # 20. the SphinxQL session layer: a 200k table by IMPORT TABLE, a write
     # stream, percolate queries, distributed tables, against the CPU twin
-    session_phase(packed, batches, gpu_results, launches_by_path, t_start)
+    session_phase(packed, batches, gpu_results, launches_by_path, t_start,
+                  shards_job)
 
     # 21. replication: two nodes on the card and a CPU twin cluster; the
     # 200k table by snapshot transfer, writes from both nodes
@@ -3905,6 +4082,10 @@ def main() -> int:
     # 23. the 200k corpus indexed from text on the native path (both builder
     # paths equal on 20k documents), phase 3's batches over it on the card
     text_phase(batches, gpu_results, launches_by_path, t_start)
+
+    # 24. the port's bench (tools/bench.py) over the 200k corpus: its JSON
+    # line, the parity gate and one K1 launch per round
+    bench_phase(smi, launches_by_path, t_start)
     del gpu, cpu, packed, data, batch_items, plans, all_plans
     torch.cuda.empty_cache()
     print(f"{since(t_start)} 200k phases done")
@@ -3913,13 +4094,11 @@ def main() -> int:
     n_big = BIG_DOCS
     tag = f"{n_big // 1000}k"
     t0 = time.perf_counter()
-    big = bench_corpus.build_corpus(n_big, VOCAB, AVG_LEN)
+    big, build_s, store_s = big_job.get()
     print(f"{tag} corpus: {big.n_docs} docs, {big.n_postings} postings, "
-          f"{len(big.hit_packed)} hits, built in "
-          f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    big.packed_store()
-    print(f"{tag} packed store built in {time.perf_counter() - t0:.1f} s")
+          f"{len(big.hit_packed)} hits, built in {build_s:.1f} s and its "
+          f"packed store in {store_s:.1f} s by the host-build process; "
+          f"waited {time.perf_counter() - t0:.1f} s for it here")
     t0 = time.perf_counter()
     gpu = SearchIndex(big, device="cuda")
     torch.cuda.synchronize()

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import bisect
 import math
+import subprocess
 import time
 from dataclasses import replace
 
@@ -128,6 +129,33 @@ def make_mesh(n_shards: int | None = None) -> list[torch.device]:
     if n < 1 or n > visible:
         raise ValueError(f"a mesh of {n} cards asked for, {visible} visible")
     return [torch.device("cuda", i) for i in range(n)]
+
+
+def cards(devices: list) -> list[torch.device]:
+    """The distinct cards among ``devices``, each with its index."""
+    out = []
+    for d in map(torch.device, devices):
+        if d.type == "cuda":
+            d = torch.device("cuda", torch.cuda.current_device()
+                             if d.index is None else d.index)
+            if d not in out:
+                out.append(d)
+    return out
+
+
+def sync(devices: list) -> None:
+    """Wait for every card among ``devices``."""
+    for d in cards(devices):
+        torch.cuda.synchronize(d)
+
+
+def smi_cards() -> list[str]:
+    """``nvidia-smi``'s name and power limit of every card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60
+    ).stdout.strip().splitlines()
 
 
 class ShardedIndex:

@@ -38,7 +38,6 @@ from __future__ import annotations
 import argparse
 import gc
 import json
-import subprocess
 import sys
 import time
 from collections import Counter
@@ -54,7 +53,8 @@ from ..ops import _build
 from ..ops import groupby as gb
 from ..ops import packed_store as ps
 from ..ops.search import window_kinds
-from ..parallel.sharded import ShardedIndex, make_mesh
+from ..parallel.sharded import (ShardedIndex, cards, make_mesh,
+                                smi_cards, sync)
 
 VOCAB, AVG_LEN = 50_000, 100       # bench.py's corpus
 QUERY_DOCS, QUERY_SEED = 200_000, 7
@@ -91,23 +91,6 @@ def summary(r) -> tuple:
     return (r.error, r.total, r.total_found,
             [(m.docid, m.weight, m.attrs) for m in r.matches],
             [(w.word, w.docs, w.hits) for w in r.word_stats])
-
-
-def cards(devices: list) -> list[torch.device]:
-    """The distinct cards among ``devices``, each with its index."""
-    out = []
-    for d in map(torch.device, devices):
-        if d.type == "cuda":
-            d = torch.device("cuda", torch.cuda.current_device()
-                             if d.index is None else d.index)
-            if d not in out:
-                out.append(d)
-    return out
-
-
-def sync(devices: list) -> None:
-    for d in cards(devices):
-        torch.cuda.synchronize(d)
 
 
 def walls(idx, queries: list, devices: list, runs: int) -> list[float]:
@@ -316,15 +299,6 @@ def check_mesh(shards: list, devices: list, batches: dict, one,
                                             f"{tag} fallback",
                                             launches_by_path)
     return report
-
-
-def smi_cards() -> list[str]:
-    """``nvidia-smi``'s name and power limit of every card."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60
-    ).stdout.strip().splitlines()
 
 
 def main(argv=None) -> int:

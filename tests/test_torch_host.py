@@ -40,7 +40,11 @@ what the original gives on the same input:
   the index builder among them): each module's code equal to its JAX
   original, statement by statement (the ASTs), except its import
   statements and its module docstring; the tokenizer's too, but for the
-  lock around its native buffers.
+  lock around its native buffers; and ``_run_batches``,
+  ``parity_recall_at_10`` and ``_emit_error`` of the port's bench
+  (``tools/bench.py``) equal to ``bench.py``'s, but for imports,
+  docstrings and the synchronize that ends each batch in
+  ``_run_batches``.
 
 Tolerance: exact. Everything compared is an integer, string, boolean or a
 float32 array copied or computed by the same numpy expression.
@@ -1311,3 +1315,41 @@ def test_copy_differs_from_jax_by_lock_only(rel):
     jax_src = repo / "manticoresearch_tpu" / rel
     assert _code_without_imports(port) != _code_without_imports(jax_src)
     assert _code_without_lock(port) == _code_without_lock(jax_src)
+
+
+# functions of the port's bench (tools/bench.py) copied from bench.py:
+# equal statement by statement but for imports, docstrings and the
+# synchronize of the index's cards after each batch
+_BENCH_COPIES = ("_run_batches", "parity_recall_at_10", "_emit_error")
+
+
+class _DropSync(_DropImports):
+    """Drops ``_sync(...)`` statements (imports dropped too)."""
+
+    def visit_Expr(self, node):
+        call = node.value
+        if (isinstance(call, _ast.Call) and isinstance(call.func, _ast.Name)
+                and call.func.id == "_sync"):
+            return None
+        return node
+
+
+def _function_dump(path: _Path, name: str, transformer) -> str:
+    tree = _ast.parse(path.read_text(), str(path))
+    (fn,) = [n for n in tree.body
+             if isinstance(n, _ast.FunctionDef) and n.name == name]
+    if _ast.get_docstring(fn) is not None:
+        fn.body = fn.body[1:]
+    return _ast.dump(transformer().visit(fn))
+
+
+@pytest.mark.parametrize("name", _BENCH_COPIES)
+def test_bench_copy_equals_bench_py_but_imports_and_sync(name):
+    repo = _Path(__file__).resolve().parent.parent
+    port = repo / "manticoresearch_tpu_torch" / "tools" / "bench.py"
+    original = repo / "bench.py"
+    assert _function_dump(port, name, _DropSync) == \
+        _function_dump(original, name, _DropSync)
+    synced = _function_dump(port, name, _DropImports) != \
+        _function_dump(original, name, _DropImports)
+    assert synced == (name == "_run_batches")

@@ -18,7 +18,8 @@ SELECT on a local-only distributed table; then two port nodes (each a
 ``cluster:table`` INSERT from the joiner, read back on the creator; then
 a port ``Daemon(device="cpu")`` creates, fills and searches a table over
 its HTTP listener's dispatch, and ``tools.replay`` replays a query log
-against its data directory.
+against its data directory; last, ``tools.bench`` runs configs 1 and 5 on
+the CPU at 2,000 documents (exit 0, ``recall_at_10`` 1.0).
 
 Tolerance: exact (import graphs and docids).
 """
@@ -135,6 +136,8 @@ def test_port_imports_nothing_that_reaches_jax():
     assert {port / "server" / "mysql.py", port / "server" / "http.py",
             port / "server" / "api.py", port / "server" / "daemon.py",
             port / "tools" / "replay.py"} <= set(files)
+    # the benchmark
+    assert port / "tools" / "bench.py" in set(files)
     bad = {}
     for f in files:
         deps = _imports(f, module_level_only=False)
@@ -277,6 +280,15 @@ rc = replay.main(["--log", os.path.join(tmp, "q.log"), "--data-dir",
                   os.path.join(tmp, "daemon"), "--device", "cpu", "--quiet"])
 print("REPLAY", rc)
 shutil.rmtree(tmp, ignore_errors=True)
+import contextlib, io
+from manticoresearch_tpu_torch.tools import bench
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    rc = bench.main(["--device", "cpu", "--docs", "2000", "--vocab", "300",
+                     "--avg-len", "20", "--batch", "8", "--batches", "1",
+                     "--configs", "1,5", "--scale-docs", ""])
+line = json.loads(buf.getvalue())
+print("BENCH", rc, line["recall_at_10"], sorted(line["configs"]))
 assert not [m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "manticoresearch_tpu", "bench")]
 print("DOCIDS", sorted(m.docid for m in r.matches))
@@ -298,3 +310,5 @@ def test_port_runs_where_jax_cannot_be_imported():
     assert "CLUSTER [5]" in proc.stdout
     assert "HTTP [7]" in proc.stdout
     assert "REPLAY 0" in proc.stdout
+    assert "BENCH 0 1.0 ['1_single_term_bm25', '5_distributed_1shard']" \
+        in proc.stdout
