@@ -26,6 +26,8 @@ from __future__ import annotations
 import time
 from dataclasses import replace as dc_replace
 
+from ..utils import trace
+
 
 def _apply_sort(matches, q, presort_docid: bool = True):
     """Multi-pass stable sort: supports desc on non-numeric (string) attrs,
@@ -582,26 +584,29 @@ def _stats_steps(index, q, stats_kwargs):
 
     t0 = time.perf_counter()
     try:
-        ast = index.parser.parse(q.match)
-        order = _resolve_order(q, index.schema)
-        cq = plan_query(
-            ast, index.packed,
-            filters=q.filters, ranker=q.ranker, max_matches=q.max_matches,
-            filter_tree=q.filter_tree,
-            window=q.offset + q.limit, order=order,
-            field_weights=q.field_weights, idf_plain=q.idf_plain,
-            tfidf_normalized=q.tfidf_normalized,
-            expansion_limit=q.expansion_limit,
-            boolean_simplify=q.boolean_simplify,
-            expand_keywords=q.expand_keywords,
-            collation=q.collation,
-            packed_store=index.packed.packed_store(),
-            **{"emit_factors": _wants_packedfactors(q.select),
-               **stats_kwargs},
-        )
+        with trace.span("plan"):
+            with trace.span("parse"):
+                ast = index.parser.parse(q.match)
+            with trace.span("plan_query"):
+                cq = plan_query(
+                    ast, index.packed,
+                    filters=q.filters, ranker=q.ranker,
+                    max_matches=q.max_matches, filter_tree=q.filter_tree,
+                    window=q.offset + q.limit,
+                    order=_resolve_order(q, index.schema),
+                    field_weights=q.field_weights, idf_plain=q.idf_plain,
+                    tfidf_normalized=q.tfidf_normalized,
+                    expansion_limit=q.expansion_limit,
+                    boolean_simplify=q.boolean_simplify,
+                    expand_keywords=q.expand_keywords,
+                    collation=q.collation,
+                    packed_store=index.packed.packed_store(),
+                    **{"emit_factors": _wants_packedfactors(q.select),
+                       **stats_kwargs},
+                )
     except (ValueError, NotImplementedError) as e:
         return SearchResult([], 0, 0, 0.0, [], error=str(e))
-    rowids, weights, found, _t_dev, pf = yield ("rank", cq)
+    rowids, weights, found, pf = yield ("rank", cq)
     return index._finish(q, cq, rowids, weights, found, t0, pf)
 
 

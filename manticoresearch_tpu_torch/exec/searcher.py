@@ -58,6 +58,7 @@ from ..query.ftparser import FtQueryParser
 from ..query.planner import AttrFilterDef, CompiledQuery, plan_query
 from ..text.dictionary import Dictionary
 from ..text.tokenizer import Tokenizer
+from ..utils import trace
 from .multi import _apply_sort, ref_group_sort
 
 
@@ -313,37 +314,45 @@ class SearchIndex:
 
     # ------------------------------------------------------------------
     def plan(self, q: SearchQuery) -> CompiledQuery:
-        emit_factors = _wants_packedfactors(q.select)
-        key = (
-            q.match, q.ranker, q.max_matches, q.offset + q.limit,
-            tuple(q.sort or ()), q.idf_plain, q.tfidf_normalized,
-            emit_factors, q.expansion_limit, q.boolean_simplify, q.expand_keywords,
-            q.collation, q.not_only_allowed,
-            tuple(sorted(q.field_weights.items())),
-            tuple((f.attr, f.kind, tuple(f.values), f.lo, f.hi, f.exclude,
-                   f.lo_excl, f.hi_excl) for f in q.filters),
-            q.filter_tree,
-        )
-        cached = self._plan_cache.get(key)
-        if cached is not None:
-            return cached
-        ast = self.parser.parse(q.match,
-                                not_only_allowed=q.not_only_allowed)
-        cq = plan_query(
-            ast, self.packed,
-            filters=q.filters, ranker=q.ranker, max_matches=q.max_matches,
-            filter_tree=q.filter_tree, window=q.offset + q.limit,
-            order=_resolve_order(q, self.schema),
-            field_weights=q.field_weights,
-            idf_plain=q.idf_plain, tfidf_normalized=q.tfidf_normalized,
-            emit_factors=emit_factors, expansion_limit=q.expansion_limit,
-            packed_store=self.packed.packed_store(),
-            boolean_simplify=q.boolean_simplify,
-            expand_keywords=q.expand_keywords,
-            collation=q.collation,
-        )
-        self._cache_put(key, cq)
-        return cq
+        with trace.span("plan"):
+            emit_factors = _wants_packedfactors(q.select)
+            key = (
+                q.match, q.ranker, q.max_matches, q.offset + q.limit,
+                tuple(q.sort or ()), q.idf_plain, q.tfidf_normalized,
+                emit_factors, q.expansion_limit, q.boolean_simplify,
+                q.expand_keywords,
+                q.collation, q.not_only_allowed,
+                tuple(sorted(q.field_weights.items())),
+                tuple((f.attr, f.kind, tuple(f.values), f.lo, f.hi, f.exclude,
+                       f.lo_excl, f.hi_excl) for f in q.filters),
+                q.filter_tree,
+            )
+            cached = self._plan_cache.get(key)
+            if cached is not None:
+                trace.count("plan_cache_hit")
+                return cached
+            trace.count("plan_cache_miss")
+            with trace.span("parse"):
+                ast = self.parser.parse(q.match,
+                                        not_only_allowed=q.not_only_allowed)
+            with trace.span("plan_query"):
+                cq = plan_query(
+                    ast, self.packed,
+                    filters=q.filters, ranker=q.ranker,
+                    max_matches=q.max_matches,
+                    filter_tree=q.filter_tree, window=q.offset + q.limit,
+                    order=_resolve_order(q, self.schema),
+                    field_weights=q.field_weights,
+                    idf_plain=q.idf_plain, tfidf_normalized=q.tfidf_normalized,
+                    emit_factors=emit_factors,
+                    expansion_limit=q.expansion_limit,
+                    packed_store=self.packed.packed_store(),
+                    boolean_simplify=q.boolean_simplify,
+                    expand_keywords=q.expand_keywords,
+                    collation=q.collation,
+                )
+            self._cache_put(key, cq)
+            return cq
 
     def _cache_put(self, key, value) -> None:
         if len(self._plan_cache) > 8192:
@@ -369,17 +378,19 @@ class SearchIndex:
 
     def _drive_steps(self, gens: list) -> list[SearchResult]:
         """Drive generators of device work (``_steps``) together, one round
-        of device work at a time, until each has returned its result."""
+        of device work at a time, until each has returned its result. The
+        drive is one request of the trace (``utils.trace``)."""
         results: list[SearchResult | None] = [None] * len(gens)
         pending: dict[int, tuple] = {}
-        for i, g in enumerate(gens):
-            self._advance(i, g, None, pending, results)
-        while pending:
-            items = list(pending.items())
-            pending = {}
-            replies = self._run_round([req for _, req in items])
-            for (i, _), reply in zip(items, replies):
-                self._advance(i, gens[i], reply, pending, results)
+        with trace.request(len(gens)):
+            for i, g in enumerate(gens):
+                self._advance(i, g, None, pending, results)
+            while pending:
+                items = list(pending.items())
+                pending = {}
+                replies = self._run_round([req for _, req in items])
+                for (i, _), reply in zip(items, replies):
+                    self._advance(i, gens[i], reply, pending, results)
         return results  # type: ignore[return-value]
 
     @staticmethod
@@ -393,58 +404,64 @@ class SearchIndex:
 
     def _run_round(self, reqs: list[tuple]) -> list:
         """Run one round of device work: ("rank", cq) -> (rowids, weights,
-        found, seconds, PACKEDFACTORS() arrays or None); ("group", cq,
-        gspec) -> the group-by outputs as numpy."""
-        t0 = time.perf_counter()
-        n_docs = self.packed.n_docs
-        n_fields = max(self.schema.n_fields, 1)
-        progs = []
-        for req in reqs:
-            cq = req[1]
-            if req[0] == "rank":
-                progs.append(("rank", cq.sig, cq.slot_pb, cq.slot_hb,
-                              cq.n_hit_iters))
-            else:
-                progs.append(("group", cq.sig, req[2], cq.slot_pb,
-                              cq.slot_hb, cq.n_hit_iters))
-        shapes: dict[tuple, list[int]] = {}
-        for j, key in enumerate(progs):
-            shapes.setdefault(key, []).append(j)
-        data = self.device.data_pytree()
-        order = [j for js in shapes.values() for j in js]
-        decoded = dict(zip(order, self._decode_windows(
-            data, [reqs[j][1] for j in order])))
-        outs = []
-        for key, js in shapes.items():
-            if key[0] == "rank":
-                fn = build_kernel(key[1], n_docs, n_fields, *key[2:])
-                rows = [pack_output(fn(data, reqs[j][1].runtime, decoded[j]))
-                        for j in js]
-            else:
-                fn = build_groupby(key[1], key[2], n_docs, n_fields, *key[3:])
-                rows = [pack_groupby_output(
-                    fn(data, reqs[j][1].runtime, decoded[j]), key[2])
-                    for j in js]
-            outs.append((key, js, torch.stack(rows)))
-        replies: list = [None] * len(reqs)
-        flat = torch.cat([o.reshape(-1) for _, _, o in outs]).cpu().numpy()
-        dt = time.perf_counter() - t0
-        off = 0
-        for key, js, o in outs:
-            block = flat[off:off + o.numel()].reshape(o.shape)
-            off += o.numel()
-            for bi, j in enumerate(js):
-                row = block[bi]
-                if key[0] == "rank":
-                    k = key[1].k
-                    pf = (unpack_factors(row[2 * k + 1:], k, n_fields,
-                                         key[1].n_slots)
-                          if row.shape[0] > 2 * k + 1 else None)
-                    replies[j] = (row[:k], row[k:2 * k], int(row[2 * k]), dt,
-                                  pf)
+        found, PACKEDFACTORS() arrays or None); ("group", cq, gspec) -> the
+        group-by outputs as numpy. Spans: ``round``, holding ``decode``,
+        one ``program`` per plan shape, ``fetch`` and ``unpack``."""
+        with trace.span("round"):
+            n_docs = self.packed.n_docs
+            n_fields = max(self.schema.n_fields, 1)
+            progs = []
+            for req in reqs:
+                cq = req[1]
+                if req[0] == "rank":
+                    progs.append(("rank", cq.sig, cq.slot_pb, cq.slot_hb,
+                                  cq.n_hit_iters))
                 else:
-                    replies[j] = unpack_groupby_row(row, key[2])
-        return replies
+                    progs.append(("group", cq.sig, req[2], cq.slot_pb,
+                                  cq.slot_hb, cq.n_hit_iters))
+            shapes: dict[tuple, list[int]] = {}
+            for j, key in enumerate(progs):
+                shapes.setdefault(key, []).append(j)
+            data = self.device.data_pytree()
+            order = [j for js in shapes.values() for j in js]
+            with trace.span("decode"):
+                decoded = dict(zip(order, self._decode_windows(
+                    data, [reqs[j][1] for j in order])))
+            outs = []
+            for key, js in shapes.items():
+                with trace.span("program"):
+                    if key[0] == "rank":
+                        fn = build_kernel(key[1], n_docs, n_fields, *key[2:])
+                        rows = [pack_output(fn(data, reqs[j][1].runtime,
+                                               decoded[j])) for j in js]
+                    else:
+                        fn = build_groupby(key[1], key[2], n_docs, n_fields,
+                                           *key[3:])
+                        rows = [pack_groupby_output(
+                            fn(data, reqs[j][1].runtime, decoded[j]), key[2])
+                            for j in js]
+                    outs.append((key, js, torch.stack(rows)))
+            replies: list = [None] * len(reqs)
+            with trace.span("fetch"):
+                flat = torch.cat([o.reshape(-1) for _, _, o in outs]).cpu() \
+                    .numpy()
+            with trace.span("unpack"):
+                off = 0
+                for key, js, o in outs:
+                    block = flat[off:off + o.numel()].reshape(o.shape)
+                    off += o.numel()
+                    for bi, j in enumerate(js):
+                        row = block[bi]
+                        if key[0] == "rank":
+                            k = key[1].k
+                            pf = (unpack_factors(row[2 * k + 1:], k, n_fields,
+                                                 key[1].n_slots)
+                                  if row.shape[0] > 2 * k + 1 else None)
+                            replies[j] = (row[:k], row[k:2 * k],
+                                          int(row[2 * k]), pf)
+                        else:
+                            replies[j] = unpack_groupby_row(row, key[2])
+            return replies
 
     def _decode_windows(self, data: dict,
                         plans: list[CompiledQuery]) -> list[list]:
@@ -484,18 +501,20 @@ class SearchIndex:
         return (yield from self._search_ranked(q))
 
     def _search_ranked(self, q: SearchQuery):
+        """The ranked path; its SHOW PROFILE stages are its own spans: its
+        ``plan``, its round's children and its ``finish``."""
         t0 = time.perf_counter()
         try:
             cq = self.plan(q)
         except (ValueError, NotImplementedError) as e:
             return SearchResult([], 0, 0, 0.0, [], error=str(e))
-        t_plan = time.perf_counter() - t0
-        rowids, weights, found, t_dev, pf = yield ("rank", cq)
-        t2 = time.perf_counter()
+        t_plan = trace.seconds("plan")
+        rowids, weights, found, pf = yield ("rank", cq)
+        t_dev = trace.child_seconds("round")
         res = self._finish(q, cq, rowids, weights, found, t0, pf)
         res.profile = [("parse_and_plan", t_plan),
                        ("device_exec_fetch", t_dev),
-                       ("finalize", time.perf_counter() - t2)]
+                       ("finalize", trace.seconds("finish"))]
         if cq.warning:
             res.warning = cq.warning
         return res
@@ -564,8 +583,9 @@ class SearchIndex:
         except ExprError:
             return (yield from self._host_grouped(q))
         out = yield ("group", cq, gspec)
-        return self._render_grouped(q, cq, gspec, out, aggs, agg_names,
-                                    plain_cols, gconcats, k, t0)
+        with trace.span("finish"):
+            return self._render_grouped(q, cq, gspec, out, aggs, agg_names,
+                                        plain_cols, gconcats, k, t0)
 
     def _expr_refs_bigint(self, expr_text: str) -> bool:
         """True when an expression references a bigint attr — such keys
@@ -593,101 +613,107 @@ class SearchIndex:
     def _plan_grouped(self, q: SearchQuery):
         """Plan a device GROUP BY query: (cq, gspec, aggs, agg_names,
         plain_cols, gconcats, k). Raises ValueError/NotImplementedError on
-        unsupported shapes. Cached like ``plan`` on every field it reads."""
-        key = ("group", q.match, q.not_only_allowed, q.ranker,
-               q.max_matches, q.offset, q.limit, q.idf_plain,
-               q.tfidf_normalized, tuple(sorted(q.field_weights.items())),
-               tuple((f.attr, f.kind, tuple(f.values), f.lo, f.hi,
-                      f.exclude, f.lo_excl, f.hi_excl) for f in q.filters),
-               q.filter_tree, q.group_by, tuple(q.select or ()),
-               tuple(q.sort or ()), tuple(q.within_sort or ()))
-        cached = self._plan_cache.get(key)
-        if cached is not None:
-            return cached
-        ast = self.parser.parse(q.match,
-                                not_only_allowed=q.not_only_allowed)
-        cq = plan_query(
-            ast, self.packed,
-            filters=q.filters, ranker=q.ranker,
-            filter_tree=q.filter_tree,
-            max_matches=q.max_matches, window=q.offset + q.limit,
-            order=("rel",), field_weights=q.field_weights,
-            idf_plain=q.idf_plain, tfidf_normalized=q.tfidf_normalized,
-            packed_store=self.packed.packed_store(),
-        )
-        key_expr = parse_expr(q.group_by)
-        aggs: list[AggSpec] = []
-        agg_names: list[str] = []
-        plain_cols: list[str] = []
-        gconcats: list[tuple[str, str]] = []
-        for sel in (q.select or ["count(*)"]):
-            gm = _GCONCAT_RE.match(sel)
-            if gm:
-                # GROUP_CONCAT runs host-side over the match mask
-                # (sphinxsort.cpp:1904+ computes it on CPU too)
-                if self.schema.attr(q.group_by) is None:
-                    raise NotImplementedError(
-                        "GROUP_CONCAT requires a plain-attribute GROUP BY")
-                gconcats.append((sel, gm.group(1)))
-                continue
-            m = _AGG_RE.match(sel)
-            if not m:
-                if sel == "*":
-                    # SELECT * in a grouped query returns every attr of
-                    # the group's representative row
-                    plain_cols.extend(
-                        a.name for a in self.schema.attrs
-                        if a.name != q.group_by
-                        and a.name not in plain_cols)
-                elif sel not in ("id", "weight()") and sel != q.group_by:
-                    plain_cols.append(sel)
-                continue
-            kind = m.group(1).lower()
-            arg = m.group(3)
-            arg_ad = self.schema.attr(arg.strip())
-            if kind != "count" and arg_ad is not None and \
-                    arg_ad.type.value in ("multi", "multi64", "string",
-                                          "json"):
-                raise ValueError(
-                    f"can not aggregate non-scalar attribute "
-                    f"'{arg.strip()}'")
-            if kind == "count" and m.group(2):
-                aggs.append(AggSpec("count_distinct", parse_expr(arg)))
-            elif kind == "count":
-                aggs.append(AggSpec("count", None))
-            else:
-                tree = parse_expr(arg)
-                aggs.append(AggSpec(
-                    kind, tree, infer_is_float(tree, self.schema)))
-            agg_names.append(sel)
-        if "count(*)" not in [a.lower().replace(" ", "")
-                              for a in agg_names]:
-            aggs.append(AggSpec("count", None))
-            agg_names.append("count(*)")
-
-        order = _resolve_group_order(q, self.schema)
-        within: tuple = ("rel",)
-        if q.within_sort:
-            wname, wasc = q.within_sort[0]
-            if wname in ("weight", "@weight", "weight()"):
-                within = ("rel",)
-            elif wname in ("id", "@id"):
-                within = ("rowid", wasc)
-            else:
-                wad = self.schema.attr(wname)
-                if wad is None:
+        unsupported shapes. Cached like ``plan`` on every field it reads,
+        and traced as ``plan`` is."""
+        with trace.span("plan"):
+            key = ("group", q.match, q.not_only_allowed, q.ranker,
+                   q.max_matches, q.offset, q.limit, q.idf_plain,
+                   q.tfidf_normalized, tuple(sorted(q.field_weights.items())),
+                   tuple((f.attr, f.kind, tuple(f.values), f.lo, f.hi,
+                          f.exclude, f.lo_excl, f.hi_excl) for f in q.filters),
+                   q.filter_tree, q.group_by, tuple(q.select or ()),
+                   tuple(q.sort or ()), tuple(q.within_sort or ()))
+            cached = self._plan_cache.get(key)
+            if cached is not None:
+                trace.count("plan_cache_hit")
+                return cached
+            trace.count("plan_cache_miss")
+            with trace.span("parse"):
+                ast = self.parser.parse(q.match,
+                                        not_only_allowed=q.not_only_allowed)
+            with trace.span("plan_query"):
+                cq = plan_query(
+                    ast, self.packed,
+                    filters=q.filters, ranker=q.ranker,
+                    filter_tree=q.filter_tree,
+                    max_matches=q.max_matches, window=q.offset + q.limit,
+                    order=("rel",), field_weights=q.field_weights,
+                    idf_plain=q.idf_plain, tfidf_normalized=q.tfidf_normalized,
+                    packed_store=self.packed.packed_store(),
+                )
+            key_expr = parse_expr(q.group_by)
+            aggs: list[AggSpec] = []
+            agg_names: list[str] = []
+            plain_cols: list[str] = []
+            gconcats: list[tuple[str, str]] = []
+            for sel in (q.select or ["count(*)"]):
+                gm = _GCONCAT_RE.match(sel)
+                if gm:
+                    # GROUP_CONCAT runs host-side over the match mask
+                    # (sphinxsort.cpp:1904+ computes it on CPU too)
+                    if self.schema.attr(q.group_by) is None:
+                        raise NotImplementedError(
+                            "GROUP_CONCAT requires a plain-attribute GROUP BY")
+                    gconcats.append((sel, gm.group(1)))
+                    continue
+                m = _AGG_RE.match(sel)
+                if not m:
+                    if sel == "*":
+                        # SELECT * in a grouped query returns every attr of
+                        # the group's representative row
+                        plain_cols.extend(
+                            a.name for a in self.schema.attrs
+                            if a.name != q.group_by
+                            and a.name not in plain_cols)
+                    elif sel not in ("id", "weight()") and sel != q.group_by:
+                        plain_cols.append(sel)
+                    continue
+                kind = m.group(1).lower()
+                arg = m.group(3)
+                arg_ad = self.schema.attr(arg.strip())
+                if kind != "count" and arg_ad is not None and \
+                        arg_ad.type.value in ("multi", "multi64", "string",
+                                              "json"):
                     raise ValueError(
-                        f"unknown WITHIN GROUP ORDER BY attr {wname!r}")
-                within = ("attr", wname, wasc, wad.type.value == "float")
-        k = max(1, min(q.max_matches, q.offset + q.limit,
-                       max(self.packed.n_docs, 1)))
-        gspec = GroupSpec(key_expr=key_expr, aggs=tuple(aggs),
-                          order=order, k=k,
-                          emit_eligible=bool(gconcats), within=within)
-        plan = (cq, gspec, tuple(aggs), tuple(agg_names),
-                tuple(plain_cols), tuple(gconcats), k)
-        self._cache_put(key, plan)
-        return plan
+                        f"can not aggregate non-scalar attribute "
+                        f"'{arg.strip()}'")
+                if kind == "count" and m.group(2):
+                    aggs.append(AggSpec("count_distinct", parse_expr(arg)))
+                elif kind == "count":
+                    aggs.append(AggSpec("count", None))
+                else:
+                    tree = parse_expr(arg)
+                    aggs.append(AggSpec(
+                        kind, tree, infer_is_float(tree, self.schema)))
+                agg_names.append(sel)
+            if "count(*)" not in [a.lower().replace(" ", "")
+                                  for a in agg_names]:
+                aggs.append(AggSpec("count", None))
+                agg_names.append("count(*)")
+
+            order = _resolve_group_order(q, self.schema)
+            within: tuple = ("rel",)
+            if q.within_sort:
+                wname, wasc = q.within_sort[0]
+                if wname in ("weight", "@weight", "weight()"):
+                    within = ("rel",)
+                elif wname in ("id", "@id"):
+                    within = ("rowid", wasc)
+                else:
+                    wad = self.schema.attr(wname)
+                    if wad is None:
+                        raise ValueError(
+                            f"unknown WITHIN GROUP ORDER BY attr {wname!r}")
+                    within = ("attr", wname, wasc, wad.type.value == "float")
+            k = max(1, min(q.max_matches, q.offset + q.limit,
+                           max(self.packed.n_docs, 1)))
+            gspec = GroupSpec(key_expr=key_expr, aggs=tuple(aggs),
+                              order=order, k=k,
+                              emit_eligible=bool(gconcats), within=within)
+            plan = (cq, gspec, tuple(aggs), tuple(agg_names),
+                    tuple(plain_cols), tuple(gconcats), k)
+            self._cache_put(key, plan)
+            return plan
 
     def _render_grouped(self, q, cq, gspec, out, aggs, agg_names,
                         plain_cols, gconcats, k, t0) -> SearchResult:
@@ -763,38 +789,39 @@ class SearchIndex:
     def _finish(self, q: SearchQuery, cq: CompiledQuery,
                 rowids: np.ndarray, weights: np.ndarray, found: int,
                 t0: float, pf: dict | None = None) -> SearchResult:
-        if q.cutoff:
-            found = min(found, q.cutoff)
-        n_avail = min(found, cq.sig.k)
-        sel = np.arange(n_avail)
-        rowids = rowids[:n_avail]
-        weights = weights[:n_avail]
-        if cq.sig.order[0] == "rel":
-            keep = weights != INT32_MIN
-            rowids, weights, sel = rowids[keep], weights[keep], sel[keep]
-        lo = min(q.offset, len(rowids))
-        hi = min(q.offset + q.limit, len(rowids))
-        rowids, weights, sel = rowids[lo:hi], weights[lo:hi], sel[lo:hi]
+        with trace.span("finish"):
+            if q.cutoff:
+                found = min(found, q.cutoff)
+            n_avail = min(found, cq.sig.k)
+            sel = np.arange(n_avail)
+            rowids = rowids[:n_avail]
+            weights = weights[:n_avail]
+            if cq.sig.order[0] == "rel":
+                keep = weights != INT32_MIN
+                rowids, weights, sel = rowids[keep], weights[keep], sel[keep]
+            lo = min(q.offset, len(rowids))
+            hi = min(q.offset + q.limit, len(rowids))
+            rowids, weights, sel = rowids[lo:hi], weights[lo:hi], sel[lo:hi]
 
-        matches = self._hydrate(rowids, weights, q.select)
-        for m, r in zip(matches, rowids.tolist()):
-            m._rowid = int(r)   # physical row within this index
-        if pf is not None:
-            pf_keys = [s2 for s2 in (q.select or [])
-                       if s2.lower().replace(" ", "").startswith(
-                           "packedfactors(")]
-            for m, j in zip(matches, sel.tolist()):
-                for pk in (pf_keys or ["packedfactors()"]):
-                    as_json = "json=1" in pk.lower().replace(" ", "")
-                    m.attrs[pk] = _render_packed_factors(
-                        pf, j, self.schema.fields, cq.slot_terms,
-                        cq.runtime, as_json=as_json)
-        dt = (time.perf_counter() - t0) * 1000.0
-        stats = [WordStat(t, d, h) for t, d, h in cq.stat_list]
-        res = SearchResult(matches, min(found, q.max_matches), found, dt,
-                           stats)
-        res.plan_repr = render_plan(cq.ast, self.schema)
-        return res
+            matches = self._hydrate(rowids, weights, q.select)
+            for m, r in zip(matches, rowids.tolist()):
+                m._rowid = int(r)   # physical row within this index
+            if pf is not None:
+                pf_keys = [s2 for s2 in (q.select or [])
+                           if s2.lower().replace(" ", "").startswith(
+                               "packedfactors(")]
+                for m, j in zip(matches, sel.tolist()):
+                    for pk in (pf_keys or ["packedfactors()"]):
+                        as_json = "json=1" in pk.lower().replace(" ", "")
+                        m.attrs[pk] = _render_packed_factors(
+                            pf, j, self.schema.fields, cq.slot_terms,
+                            cq.runtime, as_json=as_json)
+            dt = (time.perf_counter() - t0) * 1000.0
+            stats = [WordStat(t, d, h) for t, d, h in cq.stat_list]
+            res = SearchResult(matches, min(found, q.max_matches), found, dt,
+                               stats)
+            res.plan_repr = render_plan(cq.ast, self.schema)
+            return res
 
     def _host_column(self, name: str):
         """One attribute as a host-side per-row sequence (actual values —

@@ -35,6 +35,7 @@ import torch
 from ..schema import Schema
 from ..text.dictionary import DictSettings
 from ..text.tokenizer import TokenizerSettings
+from ..utils import trace
 from .builder import IndexBuilder, PackedIndex
 
 
@@ -687,7 +688,8 @@ class RtIndex:
             hit = qc.get(key)
             if hit is not None:
                 return hit
-        res = search_rt(self, q)
+        with trace.request(1):     # the segments' searches join it
+            res = search_rt(self, q)
         # RAM segments never cache: the reference's qcache keys disk-chunk
         # identity only (sphinxqcache.cpp ties entries to a CSphIndex+TID;
         # RAM chunks are excluded — golden test_229's counters stay 0

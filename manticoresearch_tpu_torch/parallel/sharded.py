@@ -61,6 +61,7 @@ from ..query.planner import CompiledQuery, _next_pow4, plan_query
 from ..schema import Schema
 from ..text.dictionary import Dictionary
 from ..text.tokenizer import Tokenizer
+from ..utils import trace
 
 
 class _UnionView:
@@ -463,21 +464,25 @@ class ShardedIndex:
         return merge_part_results(results, q, self.schema)
 
     def plan(self, q) -> CompiledQuery:
-        ast = self.parser.parse(q.match)
-        try:
-            order = _resolve_order(q, self.schema)
-        except ValueError:
-            order = ("rel",)
-        if order[0] not in ("rel", "attr"):
-            order = ("rel",)
-        return plan_query(
-            ast, self.union,
-            filters=q.filters, ranker=q.ranker, max_matches=q.max_matches,
-            filter_tree=q.filter_tree,
-            order=order, field_weights=q.field_weights,
-            idf_plain=q.idf_plain, tfidf_normalized=q.tfidf_normalized,
-            packed_store=self._union_store(),
-        )
+        with trace.span("plan"):
+            with trace.span("parse"):
+                ast = self.parser.parse(q.match)
+            with trace.span("plan_query"):
+                try:
+                    order = _resolve_order(q, self.schema)
+                except ValueError:
+                    order = ("rel",)
+                if order[0] not in ("rel", "attr"):
+                    order = ("rel",)
+                return plan_query(
+                    ast, self.union,
+                    filters=q.filters, ranker=q.ranker,
+                    max_matches=q.max_matches, filter_tree=q.filter_tree,
+                    order=order, field_weights=q.field_weights,
+                    idf_plain=q.idf_plain,
+                    tfidf_normalized=q.tfidf_normalized,
+                    packed_store=self._union_store(),
+                )
 
     def _union_store(self):
         """Union-term pseudo PackedStore: carries the GLOBAL width classes
@@ -608,66 +613,77 @@ class ShardedIndex:
         launch on the part's device); the per-shard program per shard and
         query, plan shape by plan shape; the prelude on each part's device,
         the gather and the merge on the first device; one fetch of every
-        output row (the agent fan-out of every query in one round)."""
-        t0 = time.perf_counter()
-        results: list = [None] * len(queries)
-        bundles: dict[int, tuple] = {}
-        groups: dict[tuple, list[int]] = {}
-        for i, q in enumerate(queries):
-            st, val = self._prep(q)
-            if st == "error":
-                results[i] = SearchResult([], 0, 0, 0.0, [], error=val)
-            elif st == "fallback":
-                results[i] = self._fallback_search(q)
-            else:
-                bundles[i] = val
-                cq = val[0]
-                groups.setdefault((cq.sig, val[3], val[4], val[5]),
-                                  []).append(i)
-        if not groups:
+        output row (the agent fan-out of every query in one round). The
+        batch is one request of the trace (``utils.trace``)."""
+        with trace.request(len(queries)):
+            t0 = time.perf_counter()
+            results: list = [None] * len(queries)
+            bundles: dict[int, tuple] = {}
+            groups: dict[tuple, list[int]] = {}
+            for i, q in enumerate(queries):
+                with trace.span("prep"):
+                    st, val = self._prep(q)
+                if st == "error":
+                    results[i] = SearchResult([], 0, 0, 0.0, [], error=val)
+                elif st == "fallback":
+                    results[i] = self._fallback_search(q)
+                else:
+                    bundles[i] = val
+                    cq = val[0]
+                    groups.setdefault((cq.sig, val[3], val[4], val[5]),
+                                      []).append(i)
+            if not groups:
+                return results
+            D, spp = len(self.shards), self.per_part
+            part_shards = [range(p * spp, (p + 1) * spp)
+                           for p in range(len(self.parts))]
+            # per query and shard, the runtime the per-shard program reads
+            rts = {i: [{**{k: v[d] for k, v in b[1].items()}, **b[2]}
+                       for d in range(D)] for i, b in bundles.items()}
+            decoded = {}
+            for ds in part_shards:
+                order = [(i, d) for idxs in groups.values() for i in idxs
+                         for d in ds]
+                with trace.span("decode"):
+                    decoded.update(zip(order, decode_lists([
+                        packed_windows(bundles[i][0].sig, bundles[i][3],
+                                       self._views[d], rts[i][d])
+                        for i, d in order])))
+            N = self.n_common
+            F = max(self.schema.n_fields, 1)
+            outs = []
+            for (sig, pb, hb, nhi), idxs in groups.items():
+                k_local, k = self._merge_k(sig)
+                kern = build_kernel(replace(sig, k=k_local), N, F, pb, hb, nhi)
+                chunks = []
+                for p, ds in enumerate(part_shards):
+                    with trace.span("program"):
+                        per = [[kern(self._views[d], rts[i][d], decoded[i, d])
+                                for d in ds] for i in idxs]
+                        rid, w, found = (
+                            torch.stack([torch.stack([o[name] for o in row])
+                                         for row in per])
+                            for name in ("rowid", "weight", "found"))
+                    with trace.span("prelude"):
+                        chunks.append(self._prelude(p, sig.order, rid, w,
+                                                    found))
+                with trace.span("merge"):
+                    outs.append((idxs, k, self._merge(chunks, k)))
+            with trace.span("fetch"):
+                flat = torch.cat([o.reshape(-1) for _, _, o in outs]).cpu() \
+                    .numpy()
+            off = 0
+            for idxs, k, o in outs:
+                block = flat[off:off + o.numel()].reshape(o.shape)
+                off += o.numel()
+                for bi, i in enumerate(idxs):
+                    row = block[bi]
+                    with trace.span("finish"):
+                        results[i] = self._render_merged(
+                            queries[i], bundles[i][0], row[:k], row[k:2 * k],
+                            row[2 * k:3 * k], row[3 * k:4 * k],
+                            row[4 * k:5 * k], int(row[5 * k]), t0)
             return results
-        D, spp = len(self.shards), self.per_part
-        part_shards = [range(p * spp, (p + 1) * spp)
-                       for p in range(len(self.parts))]
-        # per query and shard, the runtime the per-shard program reads
-        rts = {i: [{**{k: v[d] for k, v in b[1].items()}, **b[2]}
-                   for d in range(D)] for i, b in bundles.items()}
-        decoded = {}
-        for ds in part_shards:
-            order = [(i, d) for idxs in groups.values() for i in idxs
-                     for d in ds]
-            decoded.update(zip(order, decode_lists([
-                packed_windows(bundles[i][0].sig, bundles[i][3],
-                               self._views[d], rts[i][d])
-                for i, d in order])))
-        N = self.n_common
-        F = max(self.schema.n_fields, 1)
-        outs = []
-        for (sig, pb, hb, nhi), idxs in groups.items():
-            k_local, k = self._merge_k(sig)
-            kern = build_kernel(replace(sig, k=k_local), N, F, pb, hb, nhi)
-            chunks = []
-            for p, ds in enumerate(part_shards):
-                per = [[kern(self._views[d], rts[i][d], decoded[i, d])
-                        for d in ds] for i in idxs]
-                rid, w, found = (torch.stack([torch.stack([o[name]
-                                                           for o in row])
-                                              for row in per])
-                                 for name in ("rowid", "weight", "found"))
-                chunks.append(self._prelude(p, sig.order, rid, w, found))
-            outs.append((idxs, k, self._merge(chunks, k)))
-        flat = torch.cat([o.reshape(-1) for _, _, o in outs]).cpu().numpy()
-        off = 0
-        for idxs, k, o in outs:
-            block = flat[off:off + o.numel()].reshape(o.shape)
-            off += o.numel()
-            for bi, i in enumerate(idxs):
-                row = block[bi]
-                results[i] = self._render_merged(
-                    queries[i], bundles[i][0], row[:k], row[k:2 * k],
-                    row[2 * k:3 * k], row[3 * k:4 * k],
-                    row[4 * k:5 * k], int(row[5 * k]), t0)
-        return results
 
     def _fallback_search(self, q):
         if getattr(q, "group_by", None):
