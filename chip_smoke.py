@@ -295,6 +295,15 @@ results are held equal to the same queries on ``device="cpu"`` (in phase
     Then the host planner's share of a bench batch: the wall of a fresh
     config-1 (and config-2) batch of 128, and of another planned first
     (the plans' time, then the batch's).
+25. The LCS walk kernel (csrc/lcs_walk.cu; after phase 9b, at 1M): one
+    query of each of the 12 non-term categories of Lucene's nightly tasks
+    (``bench_corpus.lucene_categories``), each on the card with exactly
+    one kernel call and results equal to the CPU's; the kernel bit-exact
+    against the eager hit stream (its plain version, the same query with
+    the walk refused) on the AndHighHigh, HighPhrase and HighSloppyPhrase
+    programs, and timed there (device time with L2 flushed, per-call times
+    of the wrapper and the eager pass, bytes and bound).
+    ``chip_lcs_walk.py`` times the same at the benchmark's shapes.
 Each batch of phases 5-13 and 15-20 prints its warm walls and one profiled
 run of at most its first 16 queries (4 of a PACKEDFACTORS() or config-5
 batch): device time, busy share, kernel launches, host waits and copies.
@@ -327,6 +336,7 @@ from manticoresearch_tpu_torch.exec.searcher import SearchIndex, SearchQuery
 from manticoresearch_tpu_torch.ops import _build
 from manticoresearch_tpu_torch.ops import groupby as gb
 from manticoresearch_tpu_torch.ops import packed_store as ps
+from manticoresearch_tpu_torch.ops import search as ops_search
 from manticoresearch_tpu_torch.ops.search import packed_windows, window_kinds
 from manticoresearch_tpu_torch.query.planner import AttrFilterDef
 from manticoresearch_tpu_torch.tools import multichip
@@ -345,7 +355,10 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory, published peak
 KERNEL_SOURCE = "manticoresearch_tpu_torch/csrc/bitplane_decode.cu"
 KERNEL_REPLACES = "manticoresearch_tpu/ops/pfor.py:109"
 KERNEL_EVENT = "bitplane_decode_grouped"
+WALK_EVENT = "lcs_walk_kernel"
 KERNEL_SMEM_ITEMS = 2048   # csrc/bitplane_decode.cu: kSmemItems
+WALK_SOURCE = "manticoresearch_tpu_torch/csrc/lcs_walk.cu"
+WALK_REPLACES = "manticoresearch_tpu/ops/search.py:1191-1225 (XLA, no Pallas)"
 SEG_SOURCE = "manticoresearch_tpu_torch/csrc/segment_sum.cu"
 SEG_REPLACES = "manticoresearch_tpu/ops/groupby.py:145"
 SEG_EVENT = "seg_"         # its two kernels: seg_prep_kernel, seg_walk_kernel
@@ -359,6 +372,8 @@ C4_BATCH = 32              # bench.py's config-4 batch: 128 // 4
 # segment-sum launches of each counted path (the bit-plane kernel's are in
 # launches_by_path)
 SEG_BY_PATH: dict = {}
+# LCS walk launches of each counted path that runs the walk
+WALK_BY_PATH: dict = {}
 
 
 # --------------------------------------------------------------------------
@@ -1004,6 +1019,147 @@ def time_decode(name: str, items: list, iters: int, flush: bool) -> dict:
     return r
 
 
+def walk_bytes(lists: list, size: int) -> int:
+    """Bytes one LCS walk must move: each list's valid entries read once
+    (row and key, and the per-entry weight and mask where the list has
+    them), each gate read once, and per position its row and bm25part read
+    and its weight written."""
+    total = 12 * size
+    for h in lists:
+        total += h.n * (8 + 4 * isinstance(h.weight, torch.Tensor)
+                        + (h.ok is not None))
+        total += size * (h.gate is not None)
+    return total
+
+
+def capture_walk(idx: SearchIndex, q: SearchQuery):
+    """One query on the card twice: first with its LCS walk kernel call
+    recorded, then with the walk refused (``takes_lcs_walk`` false) and its
+    eager hit stream recorded, the kernel's plain version; both runs must
+    give the same results. -> (the first run's result, None where the query
+    made no walk call, else (the call's arguments with the eager run's
+    bm25part, the eager pass as a function of no arguments that returns its
+    weights))."""
+    calls, eager = [], []
+    saved = (ops_search.lcs_walk, ops_search.takes_lcs_walk,
+             ops_search._hit_stream, ops_search._rank_hit_stream)
+    walk, _, hit_stream, rank = saved
+
+    def record(*args):
+        calls.append(args)
+        return walk(*args)
+
+    def stream(*args):
+        eager.append([args, None])
+        return hit_stream(*args)
+
+    def ranked(*args):
+        eager[-1][1] = args
+        return rank(*args)
+    ops_search.lcs_walk = record
+    try:
+        res = idx.search_batch([q])[0]
+        if len(calls) > 1:
+            raise AssertionError(f"{q.match!r}: {len(calls)} LCS walk calls")
+        if not calls:
+            return res, None
+        ops_search.takes_lcs_walk = lambda sig, n_fields: False
+        ops_search._hit_stream, ops_search._rank_hit_stream = stream, ranked
+        again = idx.search_batch([q])[0]
+    finally:
+        (ops_search.lcs_walk, ops_search.takes_lcs_walk,
+         ops_search._hit_stream, ops_search._rank_hit_stream) = saved
+    if len(eager) != 1 or eager[0][1] is None:
+        raise AssertionError(f"{q.match!r}: {len(eager)} eager hit streams "
+                             "with the walk refused")
+    if ((res.total_found, [(m.docid, m.weight) for m in res.matches])
+            != (again.total_found,
+                [(m.docid, m.weight) for m in again.matches])):
+        raise AssertionError(f"{q.match!r}: the walk and the eager hit "
+                             "stream give different results")
+    stream_args, rank_args = eager[0]
+
+    def plain():
+        return rank(rank_args[0], hit_stream(*stream_args),
+                    *rank_args[2:])[0]
+    lists, rows, _, fw, with_bm25 = calls[0]
+    return res, ((lists, rows, rank_args[2], fw, with_bm25), plain)
+
+
+def time_walk(name: str, call: tuple, iters: int) -> dict:
+    """The LCS walk kernel on one program's lists (``capture_walk``'s
+    call): bit-exact against the eager hit stream of the same query on the
+    card, then its device time (L2 flushed by a 64 MB write before each
+    launch; the profiler's mean, or CUDA events behind a sleep kernel where
+    it recorded none), per-call times of the wrapper and of the eager pass
+    (CUDA events over back-to-back calls, eager, kernel, kernel, eager),
+    bytes and bound."""
+    from torch.autograd import DeviceType
+    args, plain = call
+    lists, rows = args[0], args[1]
+    size = rows.shape[0]
+    want = plain()
+    got = ops_search.lcs_walk(*args)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if err:
+        bad = int((got != want).sum())
+        raise AssertionError(f"LCS walk {name}: {bad} of {size} positions "
+                             f"differ from the eager pass, by up to {err}")
+    p1 = _event_ms(plain, max(iters // 4, 3))
+    k1 = _event_ms(lambda: ops_search.lcs_walk(*args), iters)
+    k2 = _event_ms(lambda: ops_search.lcs_walk(*args), iters)
+    p2 = _event_ms(plain, max(iters // 4, 3))
+    scrub = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    events, event_ms = timed_calls(
+        lambda: ops_search.lcs_walk(*args), iters, SLEEP_CYCLES,
+        lambda: scrub.fill_(1))
+    us = [e.time_range.elapsed_us() for e in events
+          if e.device_type == DeviceType.CUDA and WALK_EVENT in e.name]
+    if len(us) < iters:
+        print(f"  the profiler recorded {len(us)} of {iters} {WALK_EVENT} "
+              f"launches; CUDA events around each call: "
+              f"{np.mean(event_ms) * 1e3:.2f} us")
+    dev_ms = sum(us) / len(us) / 1e3 if us else float(np.mean(event_ms))
+    byts = walk_bytes(lists, size)
+    bound_ms = byts / HBM_BYTES_PER_S * 1e3
+    entries = sum(h.n for h in lists)
+    r = dict(ms=dev_ms, call_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+             bound_ms=bound_ms, bytes=byts, positions=size,
+             lists=len(lists), entries=entries, max_abs_err=err)
+    print(f"  LCS walk {name}: {len(lists)} lists, {entries} entries, "
+          f"{size} positions, {byts / 1e6:.3f} MB: device "
+          f"{dev_ms * 1e3:.2f} us ({bound_ms / dev_ms:.3f} of the bound "
+          f"{bound_ms * 1e3:.2f} us); per call {r['call_ms'] * 1e3:.2f} us; "
+          f"eager {r['plain_ms'] * 1e3:.2f} us; L2 flushed before each "
+          f"launch; largest difference from the eager pass {err}")
+    return r
+
+
+def lcs_phase(tag: str, gpu: SearchIndex, cpu: SearchIndex, packed,
+              t_start: float) -> dict:
+    """Phase 25: the LCS walk kernel on the main path. One query of each of
+    the 12 non-term categories of Lucene's nightly tasks
+    (``bench_corpus.lucene_categories``) on the card, each with exactly one
+    kernel call, results equal to the CPU's; the kernel checked and timed
+    against the eager hit stream at the AndHighHigh, HighPhrase and
+    HighSloppyPhrase programs. -> the timings by category."""
+    queries = bench_corpus.lucene_categories(packed)
+    got, calls = {}, {}
+    for cat, q in queries.items():
+        got[cat], calls[cat] = capture_walk(gpu, q)
+        if calls[cat] is None:
+            raise AssertionError(f"{tag} {cat} {q.match!r}: no LCS walk "
+                                 "kernel call")
+    check_equal(f"{tag} lucene categories", list(queries.values()),
+                list(got.values()), cpu.search_batch(list(queries.values())))
+    out = {cat: time_walk(f"{tag} {cat} {queries[cat].match!r}", calls[cat],
+                          iters=20)
+           for cat in ("AndHighHigh", "HighPhrase", "HighSloppyPhrase")}
+    print(f"{since(t_start)} {tag} LCS walk done")
+    return out
+
+
 def profile_batch(idx: SearchIndex, queries: list[SearchQuery]) -> dict:
     """One warm batch under torch.profiler: its wall time, the device time
     of every kernel and copy in it (one stream, so they do not overlap),
@@ -1069,6 +1225,7 @@ def run_counted(name: str, idx, queries: list[SearchQuery],
     torch.cuda.synchronize()
     ps.LAUNCHES.reset()
     gb.LAUNCHES.reset()
+    ops_search.WALK_LAUNCHES.reset()
     t0 = time.perf_counter()
     results = idx.search_batch(queries)
     torch.cuda.synchronize()
@@ -1078,6 +1235,8 @@ def run_counted(name: str, idx, queries: list[SearchQuery],
     launches_by_path[name] = launches
     if seg or want_seg:
         SEG_BY_PATH[name] = seg
+    if ops_search.WALK_LAUNCHES.kernel:
+        WALK_BY_PATH[name] = ops_search.WALK_LAUNCHES.kernel
     print(f"{name}: bitplane_decode launches {launches} (expected {want}), "
           f"{ps.LAUNCHES.blocks} blocks, plain decodes {plain}; "
           f"segment_sum_ordered launches {seg} (expected "
@@ -4156,6 +4315,9 @@ def smoke(shards_job, big_job) -> int:
                                          launches_by_path, 3, 0.9))
     print(f"{since(t_start)} {tag} config 3 done")
 
+    # 25. the LCS walk kernel: the 12 non-term Lucene categories at 1M
+    walk = lcs_phase(tag, gpu, cpu, big, t_start)
+
     # 9c, 9d. filter-first: MATCH-less scans, single terms under a filter
     scans = scan_queries(np.random.RandomState(9), BATCH)
     ft = ft_scan_queries(gpu, BATCH)
@@ -4347,7 +4509,16 @@ def smoke(shards_job, big_job) -> int:
         "launches_by_path": SEG_BY_PATH, "max_abs_err": seg_err,
         "ms": seg["ms"], "plain_ms": seg["plain_ms"],
         "bound_ms": seg["bound_ms"], "bound_by": seg["bound_by"],
-        "library_ms": seg["library_ms"]}]}))
+        "library_ms": seg["library_ms"]}, {
+        "name": "lcs_walk", "route": "cuda", "source": WALK_SOURCE,
+        "replaces": WALK_REPLACES,
+        "launches": sum(WALK_BY_PATH.values()),
+        "launches_by_path": WALK_BY_PATH,
+        "max_abs_err": max(t["max_abs_err"] for t in walk.values()),
+        "ms": {c: t["ms"] for c, t in walk.items()},
+        "plain_ms": {c: t["plain_ms"] for c, t in walk.items()},
+        "bound_ms": {c: t["bound_ms"] for c, t in walk.items()},
+        "bound_by": "bytes", "library_ms": None}]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

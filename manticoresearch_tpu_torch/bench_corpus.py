@@ -6,7 +6,8 @@
 port's ``SearchQuery``: the same seed gives the same corpus, the same
 shards and the same draws. ``positional_pairs`` draws term pairs that
 stand near each other in a document, so that phrase and proximity queries
-made of them find something.
+made of them find something; ``lucene_categories`` makes one query of each
+non-term category of Lucene's nightly tasks on a built index.
 """
 from __future__ import annotations
 
@@ -120,6 +121,81 @@ def positional_pairs(packed, rng, n: int, max_gap: int,
                 if len(out) == n:
                     break
     return out
+
+
+# Lucene's nightly task bands by document-frequency share (the
+# lucene_tasks traffic of perfbench): high >= 10%, med 1-10%, low 0.1-1%
+DF_BANDS = {"high": (0.10, 1.0), "med": (0.01, 0.10), "low": (0.001, 0.01)}
+
+
+def band_terms(packed, band: str) -> np.ndarray:
+    """The term ids of a df band, most frequent first."""
+    lo, hi = DF_BANDS[band]
+    share = packed.term_docs / max(packed.n_docs, 1)
+    ids = np.flatnonzero((share >= lo) & (share < hi if hi < 1.0 else True))
+    return ids[np.argsort(-packed.term_docs[ids], kind="stable")]
+
+
+def band_pair(packed, rng, band: str, tries: int = 200) -> tuple[str, str]:
+    """Two distinct terms of a df band that stand next to each other, a
+    before b, in one field of a random document (read from the index's
+    posting and hit arrays)."""
+    key_mask = ~(1 << 23)
+    in_band = np.zeros(len(packed.term_docs), bool)
+    in_band[band_terms(packed, band)] = True
+    for _ in range(tries):
+        r = int(rng.randint(packed.n_docs))
+        sel = np.flatnonzero(packed.post_rowid == r)
+        tids = np.searchsorted(packed.term_offsets, sel, side="right") - 1
+        keys, owners = [], []
+        for p, t in zip(sel, tids):
+            if in_band[t]:
+                h0, h1 = packed.post_hit_offset[p], packed.post_hit_offset[p + 1]
+                keys.append(packed.hit_packed[h0:h1] & key_mask)
+                owners.append(np.full(h1 - h0, t))
+        if not keys:
+            continue
+        keys, owners = np.concatenate(keys), np.concatenate(owners)
+        order = np.argsort(keys, kind="stable")
+        keys, owners = keys[order], owners[order]
+        nxt = np.flatnonzero((keys[1:] - keys[:-1] == 1)
+                             & (keys[1:] >> 24 == keys[:-1] >> 24)
+                             & (owners[1:] != owners[:-1]))
+        if len(nxt):
+            i = int(nxt[rng.randint(len(nxt))])
+            return packed.term_strs[owners[i]], packed.term_strs[owners[i + 1]]
+    raise RuntimeError(f"no adjacent pair of the {band} band in {tries} "
+                       "documents")
+
+
+def lucene_categories(packed, seed: int = 7, limit: int = 10) -> dict:
+    """One query of each of the 12 non-term categories of Lucene's nightly
+    tasks (AndHigh*, OrHigh*, *Phrase, *SloppyPhrase with slop 5) on a
+    built index, the words drawn from the df bands of ``DF_BANDS``:
+    category name -> the port's SearchQuery."""
+    from .exec.searcher import SearchQuery
+    rng = np.random.RandomState(seed)
+    word = {b: [packed.term_strs[t] for t in band_terms(packed, b)]
+            for b in DF_BANDS}
+    for b, ws in word.items():
+        if len(ws) < 2:
+            raise ValueError(f"the {b} df band holds {len(ws)} words")
+    out = {}
+    for b in DF_BANDS:
+        B = b.capitalize()
+        hi = rng.choice(len(word["high"]), 2, replace=False)
+        other = rng.choice(len(word[b]), 2, replace=False)
+        if b == "high":
+            other = rng.choice(np.setdiff1d(np.arange(len(word[b])), hi), 2,
+                               replace=False)
+        out[f"AndHigh{B}"] = f"{word['high'][hi[0]]} {word[b][other[0]]}"
+        out[f"OrHigh{B}"] = f"{word['high'][hi[1]]} | {word[b][other[1]]}"
+        a, c = band_pair(packed, rng, b)
+        out[f"{B}Phrase"] = f'"{a} {c}"'
+        a, c = band_pair(packed, rng, b)
+        out[f"{B}SloppyPhrase"] = f'"{a} {c}"~5'
+    return {name: SearchQuery(match=m, limit=limit)
+            for name, m in sorted(out.items())}
 
 
 class WorkloadGen:

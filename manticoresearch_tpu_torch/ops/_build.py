@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+from dataclasses import dataclass, field
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -28,6 +29,30 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+
+
+@dataclass
+class KernelLaunches:
+    """A kernel's launch counts (the segment sum's, the LCS walk's)."""
+    kernel: int = 0      # kernel calls
+    positions: int = 0   # positions those calls covered
+    plain: int = 0       # plain-PyTorch calls (CPU tensors)
+
+    _lock: threading.Lock = field(default_factory=threading.Lock,
+                                  repr=False, compare=False)
+
+    def add(self, **counts: int) -> None:
+        """Add to the named counts under a lock: a distributed table's
+        parts and an in-process agent launch from several host threads."""
+        with self._lock:
+            for name, n in counts.items():
+                setattr(self, name, getattr(self, name) + n)
+
+    def reset(self) -> None:
+        with self._lock:
+            self.kernel = 0
+            self.positions = 0
+            self.plain = 0
 
 
 def _sources() -> list[Path]:
@@ -67,6 +92,12 @@ def _declare(lib: ctypes.CDLL) -> None:
                    ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.mt_lcs_walk
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.mt_lcs_walk_sizes
+    fn.argtypes = []
+    fn.restype = ctypes.c_int64
 
 
 def _run(procs: list) -> None:

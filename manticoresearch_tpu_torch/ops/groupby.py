@@ -26,9 +26,8 @@ Exactness against the JAX package:
 """
 from __future__ import annotations
 
-import threading
 from collections.abc import Mapping
-from dataclasses import dataclass, field, replace
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -68,30 +67,7 @@ class GroupSpec:
 # --------------------------------------------------------------------------
 # the ordered float segment sum
 # --------------------------------------------------------------------------
-@dataclass
-class SegmentLaunches:
-    kernel: int = 0      # segment_sum_ordered kernel calls (two launches)
-    positions: int = 0   # positions those launches read
-    plain: int = 0       # plain-PyTorch sums (CPU tensors)
-
-    _lock: threading.Lock = field(default_factory=threading.Lock,
-                                  repr=False, compare=False)
-
-    def add(self, **counts: int) -> None:
-        """Add to the named counts under a lock: a distributed table's
-        parts and an in-process agent launch from several host threads."""
-        with self._lock:
-            for name, n in counts.items():
-                setattr(self, name, getattr(self, name) + n)
-
-    def reset(self) -> None:
-        with self._lock:
-            self.kernel = 0
-            self.positions = 0
-            self.plain = 0
-
-
-LAUNCHES = SegmentLaunches()
+LAUNCHES = _build.KernelLaunches()
 
 
 def segment_sum_plain(values: torch.Tensor, gid: torch.Tensor,

@@ -48,12 +48,17 @@ Integer weights must equal the JAX package's bit for bit, so:
 """
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from ..query.plan import (RANKERS_WITH_HITS, PlanSig, phrase_member_gating,
                           positive_phrase_nodes, positive_slots,
                           ranker_term_slots)
+from ..utils import trace
+from . import _build
 from .device_index import window
 from .packed_store import BLOCK, wrap_i32
 
@@ -583,6 +588,7 @@ def build_match_core(sig: PlanSig, n_rows: int, n_fields: int,
     pos_slots = _pos_slots(sig)
     rk_slots = ranker_term_slots(sig.expr) if use_lcs else ()
     rk_phrases = positive_phrase_nodes(sig.expr) if use_lcs else ()
+    walk = takes_lcs_walk(sig, F)
     phrase_nodes = _collect_phrase_nodes(sig.expr)
     # phrase members whose tfidf reaches a doc only where their node matched
     gated_nodes, _ = phrase_member_gating(sig.expr)
@@ -895,10 +901,20 @@ def build_match_core(sig: PlanSig, n_rows: int, n_fields: int,
 
         # ---- weight (exact reference composition) ----
         bm25part = torch.trunc((tfidf + 0.5) * SPH_BM25_SCALE).to(torch.int32)
+        if walk and dev.type == "cuda":
+            trace.count("lcs_walk")
+            slot_gate, node_gate = _ranker_gates(sig, match, termmask,
+                                                 phrase_results, size)
+            return eligible, lcs_walk(
+                _walk_lists(data, rt, phrase_results, lim_hit_ok, rk_slots,
+                            rk_phrases, slot_gate, node_gate, slot_hb),
+                rows_vec, bm25part, rt["field_weights"],
+                sig.ranker == "proximity_bm25"), rows_vec, at_rows, {}
         fw = torch.from_numpy(
             np.asarray(rt["field_weights"], np.int64)).to(dev)
         factors: dict = {}
         if use_lcs:
+            trace.count("lcs_eager")
             stream = _hit_stream(sig, rt, match, termmask, phrase_results,
                                  lim_hit_ok, rk_slots, rk_phrases, slot_hits,
                                  to_idx, size, N)
@@ -938,6 +954,55 @@ def _hit_stream(sig, rt, match, termmask, phrase_results, lim_hit_ok,
     a masked phrase emission keeps its first member's qpos."""
     with_slot = sig.ranker == "expr"
     qpos = rt["qpos"]
+    slot_gate, node_gate = _ranker_gates(sig, match, termmask,
+                                         phrase_results, size)
+    parts: list[tuple] = []
+    for s in rk_slots:
+        hrow, hpk, msk = slot_hits(s)
+        g = slot_gate(s)
+        if g is not None:
+            msk = msk & g[to_idx(hrow)]
+        if s in lim_hit_ok:
+            msk = msk & lim_hit_ok[s]
+        hrow = torch.where(msk, hrow, N)
+        hpk = torch.where(msk, hpk, 0)
+        m32 = msk.to(torch.int32)
+        # HANDLE_DUPES: a keyword at several query positions emits its
+        # hits once per occurrence
+        occs = (sig.slot_occs[s] if sig.slot_occs and not rk_phrases
+                and len(sig.slot_occs[s]) > 1 else (int(qpos[s]),))
+        for qp in occs:
+            parts.append((hrow, hpk, m32 * int(qp), m32,
+                          torch.ones_like(hrow))
+                         + ((torch.full_like(hrow, s),) if with_slot else ()))
+    for node in rk_phrases:
+        _, _, a_row, a_key, a_ok, a_w = phrase_results[node]
+        g = node_gate(node)
+        if g is not None:
+            a_ok = a_ok & g[to_idx(a_row)]
+        n_words = len(node[1])
+        # FSMphrase emission: at the phrase start, the first atom's qpos,
+        # weight (proximity: the delta-run weight) and span = word count
+        w = a_w if a_w is not None else torch.full_like(a_row, n_words)
+        parts.append((torch.where(a_ok, a_row, N),
+                      torch.where(a_ok, a_key, 0),
+                      torch.full_like(a_row, int(qpos[node[1][0]])),
+                      torch.where(a_ok, w, 0),
+                      torch.full_like(a_row, n_words))
+                     + ((torch.full_like(a_row, node[1][0]),) if with_slot
+                        else ()))
+    if not parts:
+        return None
+    cols = tuple(torch.cat(col) for col in zip(*parts))
+    return cols if with_slot else cols + (None,)
+
+
+def _ranker_gates(sig, match, termmask, phrase_results, size):
+    """The gates of the ranker's hits: -> (gate of slot s, gate of a
+    positional node), each a bool [size] over the program's positions or
+    None (no gate). A term's or node's hits reach the ranker only where
+    every enclosing AND/ANDNOT/MAYBE-right/QUORUM subtree matched the doc;
+    each subtree is evaluated once, when first asked for."""
     gate_cache: dict = {repr(sig.expr): match}
     slot_paths: dict[int, list] = {}
     node_paths: dict[tuple, list] = {}
@@ -986,45 +1051,8 @@ def _hit_stream(sig, rt, match, termmask, phrase_results, lim_hit_ok,
             out = out | g
         return out
 
-    parts: list[tuple] = []
-    for s in rk_slots:
-        hrow, hpk, msk = slot_hits(s)
-        g = gate_of(slot_paths.get(s, []))
-        if g is not None:
-            msk = msk & g[to_idx(hrow)]
-        if s in lim_hit_ok:
-            msk = msk & lim_hit_ok[s]
-        hrow = torch.where(msk, hrow, N)
-        hpk = torch.where(msk, hpk, 0)
-        m32 = msk.to(torch.int32)
-        # HANDLE_DUPES: a keyword at several query positions emits its
-        # hits once per occurrence
-        occs = (sig.slot_occs[s] if sig.slot_occs and not rk_phrases
-                and len(sig.slot_occs[s]) > 1 else (int(qpos[s]),))
-        for qp in occs:
-            parts.append((hrow, hpk, m32 * int(qp), m32,
-                          torch.ones_like(hrow))
-                         + ((torch.full_like(hrow, s),) if with_slot else ()))
-    for node in rk_phrases:
-        _, _, a_row, a_key, a_ok, a_w = phrase_results[node]
-        g = gate_of(node_paths.get(node, []))
-        if g is not None:
-            a_ok = a_ok & g[to_idx(a_row)]
-        n_words = len(node[1])
-        # FSMphrase emission: at the phrase start, the first atom's qpos,
-        # weight (proximity: the delta-run weight) and span = word count
-        w = a_w if a_w is not None else torch.full_like(a_row, n_words)
-        parts.append((torch.where(a_ok, a_row, N),
-                      torch.where(a_ok, a_key, 0),
-                      torch.full_like(a_row, int(qpos[node[1][0]])),
-                      torch.where(a_ok, w, 0),
-                      torch.full_like(a_row, n_words))
-                     + ((torch.full_like(a_row, node[1][0]),) if with_slot
-                        else ()))
-    if not parts:
-        return None
-    cols = tuple(torch.cat(col) for col in zip(*parts))
-    return cols if with_slot else cols + (None,)
+    return (lambda s: gate_of(slot_paths.get(s, [])),
+            lambda node: gate_of(node_paths.get(node, [])))
 
 
 def _rank_hit_stream(sig, stream, bm25part, fw, to_idx, size, N, F, S,
@@ -1233,6 +1261,189 @@ def _dupes_curlcs(hrow, hpk, hqp, hw, hslot, to_idx, size, N):
     curlcs = torch.where(chain_bonus, chain[hidx0],
                          torch.where(valid, hw, 0))
     return hrow, hpk, hqp, hslot, curlcs, newpos
+
+
+# --------------------------------------------------------------------------
+# the LCS walk: the proximity rankers' pass as one kernel on the card
+# --------------------------------------------------------------------------
+WALK_RANKERS = ("proximity_bm25", "proximity")
+# positional nodes whose anchors keep their hit slices' (row, key) order
+_WALK_NODES = ("phrase", "proximity", "bigram_phrase")
+WALK_MAX_LISTS = 32      # csrc/lcs_walk.cu kMaxLists
+WALK_MAX_FIELDS = 64     # csrc/lcs_walk.cu kMaxFields
+
+
+WALK_LAUNCHES = _build.KernelLaunches()
+
+
+class HitList(NamedTuple):
+    """One sorted list of the LCS rankers' hit stream, as the walk reads
+    it: entries [0, n) of ``row`` and ``key`` (int32), sorted by (row, key
+    & key_mask), each emitting (qpos, span, weight) where ``ok`` (a bool
+    per entry, or None) holds and ``gate`` (a bool per program position,
+    or None) holds at its row's position. ``weight`` is a constant or an
+    int32 per entry. Entries past n are never read."""
+    row: torch.Tensor
+    key: torch.Tensor
+    n: int
+    key_mask: int
+    qpos: int
+    span: int
+    weight: int | torch.Tensor
+    ok: torch.Tensor | None
+    gate: torch.Tensor | None
+
+
+def _walk_parts(node: tuple) -> tuple:
+    """The slots whose hit slices a positional node's anchors lay end to
+    end, in order: each member of a proximity node, the pair term of a
+    bigram phrase, else the anchor (first) slot."""
+    if node[0] == "proximity":
+        return tuple(node[1])
+    if node[0] == "bigram_phrase":
+        return (node[2],)
+    return (node[1][0],)
+
+
+def takes_lcs_walk(sig: PlanSig, n_fields: int) -> bool:
+    """Whether a plan shape ranks by the LCS walk on the card (CUDA
+    tensors are the rule's other half; CPU tensors keep the hit stream):
+    a proximity ranker; no repeated keyword (HANDLE_DUPES and per-
+    occurrence hits keep their own state machine); every positional node
+    that feeds the ranker a phrase, proximity or bigram phrase, whose
+    anchors keep their hit slices' order (NEAR moves its anchor keys,
+    SENTENCE and PARAGRAPH gate by units); no filter window (the planner
+    keeps hit-stream rankers off it, so every hit row is a candidate); at
+    least one list, and the list table and field weights within the
+    kernel's by-value argument."""
+    if (sig.ranker not in WALK_RANKERS or sig.has_dupes or sig.slot_occs
+            or sig.scan_index):
+        return False
+    nodes = positive_phrase_nodes(sig.expr)
+    if any(nd[0] not in _WALK_NODES for nd in nodes):
+        return False
+    n = len(ranker_term_slots(sig.expr)) + sum(len(_walk_parts(nd))
+                                               for nd in nodes)
+    return 0 < n <= WALK_MAX_LISTS and n_fields <= WALK_MAX_FIELDS
+
+
+def _walk_lists(data, rt, phrase_results, lim_hit_ok, rk_slots, rk_phrases,
+                slot_gate, node_gate, slot_hb) -> list[HitList]:
+    """The walk's lists, in the hit stream's order (its tie order): each
+    ranker term slot's raw hit window (the field-end flag masked in the
+    kernel; a limited slot's qualifying hits), then each positional
+    node's anchors, one list per part of ``_walk_parts``."""
+    qpos = rt["qpos"]
+    out = []
+    for s in rk_slots:
+        st = int(rt["hit_starts"][s])
+        out.append(HitList(window(data["hit_rowid"], st, slot_hb[s]),
+                           window(data["hit_packed"], st, slot_hb[s]),
+                           int(rt["hit_lengths"][s]), HITMAN_KEY_MASK,
+                           int(qpos[s]), 1, 1, lim_hit_ok.get(s),
+                           slot_gate(s)))
+    for node in rk_phrases:
+        _, _, a_row, a_key, a_ok, a_w = phrase_results[node]
+        g = node_gate(node)
+        n_words = len(node[1])
+        qp = int(qpos[node[1][0]])
+        off = 0
+        for s in _walk_parts(node):
+            part = slice(off, off + slot_hb[s])
+            out.append(HitList(a_row[part], a_key[part],
+                               int(rt["hit_lengths"][s]), -1, qp, n_words,
+                               n_words if a_w is None else a_w[part],
+                               a_ok[part], g))
+            off += slot_hb[s]
+    return out
+
+
+class _WalkList(ctypes.Structure):
+    _fields_ = [("row", ctypes.c_void_p), ("key", ctypes.c_void_p),
+                ("weight", ctypes.c_void_p), ("ok", ctypes.c_void_p),
+                ("gate", ctypes.c_void_p), ("n", ctypes.c_int32),
+                ("qpos", ctypes.c_int32), ("span", ctypes.c_int32),
+                ("wconst", ctypes.c_int32), ("key_mask", ctypes.c_int32),
+                ("pad", ctypes.c_int32)]
+
+
+class _WalkArgs(ctypes.Structure):
+    _fields_ = [("rows", ctypes.c_void_p), ("bm25part", ctypes.c_void_p),
+                ("out", ctypes.c_void_p), ("size", ctypes.c_int64),
+                ("n_lists", ctypes.c_int32), ("n_fields", ctypes.c_int32),
+                ("with_bm25", ctypes.c_int32), ("pad", ctypes.c_int32),
+                ("fw", ctypes.c_int64 * WALK_MAX_FIELDS),
+                ("lists", _WalkList * WALK_MAX_LISTS)]
+
+
+_WALK_SIZES = (ctypes.sizeof(_WalkArgs) << 32) | ctypes.sizeof(_WalkList)
+
+
+def _ptr(t: torch.Tensor | None, dtype: torch.dtype, device: torch.device,
+         n: int, what: str) -> int:
+    """The address of a contiguous ``dtype`` tensor of at least n entries
+    on ``device`` (0 for None), or a raise."""
+    if t is None:
+        return 0
+    if (t.dtype != dtype or t.device != device or t.dim() != 1
+            or t.shape[0] < n or not t.is_contiguous()):
+        raise ValueError(f"LCS walk {what}: need contiguous {dtype} [>= {n}] "
+                         f"on {device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+    return t.data_ptr()
+
+
+def lcs_walk(lists: list[HitList], rows: torch.Tensor,
+             bm25part: torch.Tensor, field_weights: np.ndarray,
+             with_bm25: bool) -> torch.Tensor:
+    """The proximity rankers' weight per program position, one launch of
+    csrc/lcs_walk.cu on CUDA tensors: int32 [size], bm25part +
+    wrap_i32(sum_f lcs_f * fw_f) * 1000 (``with_bm25``, the proximity_bm25
+    ranker) or the rank alone (proximity). ``rows`` (int32 [size],
+    ascending) holds each position's row; every valid entry's row is one of
+    them. The list table and the field weights go in the kernel's by-value
+    argument. Its plain version is the eager ``_hit_stream`` +
+    ``_rank_hit_stream``, which CPU tensors take."""
+    dev = rows.device
+    size = rows.shape[0]
+    fw = np.asarray(field_weights, np.int64)
+    if len(lists) > WALK_MAX_LISTS or len(fw) > WALK_MAX_FIELDS:
+        raise ValueError(f"LCS walk takes at most {WALK_MAX_LISTS} lists and "
+                         f"{WALK_MAX_FIELDS} fields, got {len(lists)} and "
+                         f"{len(fw)}")
+    out = torch.empty(size, dtype=torch.int32, device=dev)
+    a = _WalkArgs()
+    a.rows = _ptr(rows, torch.int32, dev, size, "rows")
+    a.bm25part = _ptr(bm25part, torch.int32, dev, size, "bm25part")
+    a.out = out.data_ptr()
+    a.size = size
+    a.n_lists = len(lists)
+    a.n_fields = len(fw)
+    a.with_bm25 = int(with_bm25)
+    a.fw[:len(fw)] = fw.tolist()
+    for arg, h in zip(a.lists, lists):
+        arg.row = _ptr(h.row, torch.int32, dev, h.n, "row")
+        arg.key = _ptr(h.key, torch.int32, dev, h.n, "key")
+        if isinstance(h.weight, torch.Tensor):
+            arg.weight = _ptr(h.weight, torch.int32, dev, h.n, "weight")
+        else:
+            arg.wconst = h.weight
+        arg.ok = _ptr(h.ok, torch.bool, dev, h.n, "ok")
+        arg.gate = _ptr(h.gate, torch.bool, dev, size, "gate")
+        arg.n = h.n
+        arg.qpos = h.qpos
+        arg.span = h.span
+        arg.key_mask = h.key_mask
+    lib = _build.load_library()
+    if lib.mt_lcs_walk_sizes() != _WALK_SIZES:
+        raise RuntimeError("csrc/lcs_walk.cu's argument layout differs from "
+                           "the wrapper's")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mt_lcs_walk(ctypes.byref(a), stream)
+    _build.check(rc, "lcs_walk")
+    WALK_LAUNCHES.add(kernel=1, positions=size)
+    return out
 
 
 def build_kernel(sig: PlanSig, n_rows: int, n_fields: int,

@@ -41,6 +41,8 @@ def _release_jax_executables():
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: opt-in scale tests (deselect by default)")
+    config.addinivalue_line(
+        "markers", "card: needs an NVIDIA card (CUDA); skips without one")
 
 
 def pytest_collection_modifyitems(config, items):
