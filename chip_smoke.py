@@ -303,7 +303,15 @@ results are held equal to the same queries on ``device="cpu"`` (in phase
     the walk refused) on the AndHighHigh, HighPhrase and HighSloppyPhrase
     programs, and timed there (device time with L2 flushed, per-call times
     of the wrapper and the eager pass, bytes and bound).
-    ``chip_lcs_walk.py`` times the same at the benchmark's shapes.
+    ``chip_lcs_walk.py`` times the same at the benchmark's shapes. The
+    positional walk (csrc/pos_walk.cu) in the same queries: one launch
+    for each Phrase and SloppyPhrase category (counted per path with the
+    other paths' in ``POS_BY_PATH``), none for the others, bit-exact
+    against the eager nodes (the query with the walk refused) and timed
+    at HighPhrase and HighSloppyPhrase (device time with L2 flushed, the
+    wrapper's host time, per-call times of the wrapper and the eager
+    nodes, bytes and bound); ``chip_pos_walk.py`` times it at the
+    benchmark's shapes.
 Each batch of phases 5-13 and 15-20 prints its warm walls and one profiled
 run of at most its first 16 queries (4 of a PACKEDFACTORS() or config-5
 batch): device time, busy share, kernel launches, host waits and copies.
@@ -359,6 +367,10 @@ WALK_EVENT = "lcs_walk_kernel"
 KERNEL_SMEM_ITEMS = 2048   # csrc/bitplane_decode.cu: kSmemItems
 WALK_SOURCE = "manticoresearch_tpu_torch/csrc/lcs_walk.cu"
 WALK_REPLACES = "manticoresearch_tpu/ops/search.py:1191-1225 (XLA, no Pallas)"
+POS_EVENT = "pos_walk_kernel"
+POS_SOURCE = "manticoresearch_tpu_torch/csrc/pos_walk.cu"
+POS_REPLACES = ("manticoresearch_tpu/ops/search.py _pred_scan under "
+                "_eval_phrase_node (XLA, no Pallas)")
 SEG_SOURCE = "manticoresearch_tpu_torch/csrc/segment_sum.cu"
 SEG_REPLACES = "manticoresearch_tpu/ops/groupby.py:145"
 SEG_EVENT = "seg_"         # its two kernels: seg_prep_kernel, seg_walk_kernel
@@ -374,6 +386,8 @@ C4_BATCH = 32              # bench.py's config-4 batch: 128 // 4
 SEG_BY_PATH: dict = {}
 # LCS walk launches of each counted path that runs the walk
 WALK_BY_PATH: dict = {}
+# positional walk launches of each counted path that runs it
+POS_BY_PATH: dict = {}
 
 
 # --------------------------------------------------------------------------
@@ -1136,6 +1150,143 @@ def time_walk(name: str, call: tuple, iters: int) -> dict:
     return r
 
 
+def capture_pos(idx: SearchIndex, q: SearchQuery):
+    """One query on the card twice: first with its positional walk call
+    recorded, then with the walk refused (``takes_pos_walk`` false) and the
+    eager ``_eval_phrase_node`` of each of the call's nodes recorded, the
+    kernel's plain version; both runs must give the same results. -> (the
+    first run's result, None where the query made no positional walk call,
+    else (the call's arguments, the eager nodes as a function of no
+    arguments that returns each node's six fields))."""
+    calls, eager = [], []
+    saved = (ops_search.pos_walk, ops_search.takes_pos_walk,
+             ops_search._eval_phrase_node)
+    walk, _, node_fn = saved
+
+    def record(*args):
+        calls.append(args)
+        return walk(*args)
+
+    def eager_node(*args):
+        eager.append(args)
+        return node_fn(*args)
+    ops_search.pos_walk = record
+    try:
+        res = idx.search_batch([q])[0]
+        if len(calls) > 1:
+            raise AssertionError(f"{q.match!r}: {len(calls)} positional "
+                                 "walk calls")
+        if not calls:
+            return res, None
+        ops_search.takes_pos_walk = lambda node, n_fields: False
+        ops_search._eval_phrase_node = eager_node
+        again = idx.search_batch([q])[0]
+    finally:
+        (ops_search.pos_walk, ops_search.takes_pos_walk,
+         ops_search._eval_phrase_node) = saved
+    nodes = calls[0][0].nodes
+    eager = [a for a in eager if a[0] in nodes]
+    if [a[0] for a in eager] != list(nodes):
+        raise AssertionError(f"{q.match!r}: the walk refused ran "
+                             f"{len(eager)} of its {len(nodes)} nodes eager")
+    if ((res.total_found, [(m.docid, m.weight) for m in res.matches])
+            != (again.total_found,
+                [(m.docid, m.weight) for m in again.matches])):
+        raise AssertionError(f"{q.match!r}: the positional walk and the "
+                             "eager nodes give different results")
+
+    def plain():
+        return [node_fn(*a) for a in eager]
+    return res, (calls[0], plain)
+
+
+def pos_differences(got: list, want: list) -> int:
+    """Entries where the walk's (match, tf, ok, a_w) of each node differ
+    from the eager node's six fields, a_w compared where ok holds."""
+    bad = 0
+    for (m, tf, ok, a_w), (em, etf, _, _, eok, eaw) in zip(got, want):
+        bad += int((m != em).sum()) + int((tf != etf).sum())
+        bad += int((ok != eok).sum())
+        if a_w is not None:
+            bad += int(((a_w != eaw) & eok).sum())
+    return bad
+
+
+def pos_bytes(args: tuple) -> int:
+    """Bytes one positional walk must move: each node's distinct member
+    windows' valid entries read once (row and key), ok (1 B) and a_w (4 B,
+    proximity) written per anchor, the positions' rows read once where the
+    space is sparse, and 4 B of tf per ok anchor (filled in after the
+    call, from its output)."""
+    table, _, _, _, lengths, rows = args
+    a = ops_search._PosArgs.from_buffer_copy(table.args)
+    total = table.n_ok + 4 * table.n_aw
+    total += 4 * table.size * (rows is not None)
+    for nd, node in zip(a.nodes, table.nodes):
+        hb = {s: m.hb for m, s in zip(nd.m, node[1])}
+        total += sum(8 * min(int(lengths[s]), h) for s, h in hb.items())
+    return total
+
+
+def time_pos(name: str, call: tuple, iters: int) -> dict:
+    """The positional walk kernel on one program's nodes
+    (``capture_pos``'s call): bit-exact against the eager nodes of the same
+    query on the card, then its device time (L2 flushed by a 64 MB write
+    before each launch; the profiler's mean, or CUDA events behind a sleep
+    kernel where it recorded none), the wrapper's host time per call (the
+    host clock over back-to-back calls, enqueue only), per-call times of
+    the wrapper and of the eager nodes (CUDA events over back-to-back
+    calls, eager, kernel, kernel, eager), bytes and bound."""
+    from torch.autograd import DeviceType
+    args, plain = call
+    table = args[0]
+    want = plain()
+    got = ops_search.pos_walk(*args)
+    torch.cuda.synchronize()
+    bad = pos_differences(got, want)
+    if bad:
+        raise AssertionError(f"positional walk {name}: {bad} entries differ "
+                             "from the eager nodes")
+    n_ok = sum(int(ok.sum()) for _, _, ok, _ in got)
+
+    def walk():
+        return ops_search.pos_walk(*args)
+    p1 = _event_ms(plain, max(iters // 4, 3))
+    k1 = _event_ms(walk, iters)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        walk()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    k2 = _event_ms(walk, iters)
+    p2 = _event_ms(plain, max(iters // 4, 3))
+    scrub = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    events, event_ms = timed_calls(walk, iters, SLEEP_CYCLES,
+                                   lambda: scrub.fill_(1))
+    us = [e.time_range.elapsed_us() for e in events
+          if e.device_type == DeviceType.CUDA and POS_EVENT in e.name]
+    if len(us) < iters:
+        print(f"  the profiler recorded {len(us)} of {iters} {POS_EVENT} "
+              f"launches; CUDA events around each call: "
+              f"{np.mean(event_ms) * 1e3:.2f} us")
+    dev_ms = sum(us) / len(us) / 1e3 if us else float(np.mean(event_ms))
+    byts = pos_bytes(args) + 4 * n_ok
+    bound_ms = byts / HBM_BYTES_PER_S * 1e3
+    r = dict(ms=dev_ms, host_ms=host_ms, call_ms=(k1 + k2) / 2,
+             plain_ms=(p1 + p2) / 2, bound_ms=bound_ms, bytes=byts,
+             positions=table.size, nodes=len(table.nodes),
+             anchors=table.n_ok, ok=n_ok, max_abs_err=bad)
+    print(f"  positional walk {name}: {len(table.nodes)} nodes, "
+          f"{table.n_ok} anchors ({n_ok} ok), {table.size} positions, "
+          f"{byts / 1e6:.3f} MB: device {dev_ms * 1e3:.2f} us "
+          f"({bound_ms / dev_ms:.3f} of the bound {bound_ms * 1e3:.2f} us); "
+          f"wrapper host {host_ms * 1e3:.2f} us, per call "
+          f"{r['call_ms'] * 1e3:.2f} us; eager {r['plain_ms'] * 1e3:.2f} us;"
+          f" L2 flushed before each launch; entries differing from the "
+          f"eager nodes {bad}")
+    return r
+
+
 def lcs_phase(tag: str, gpu: SearchIndex, cpu: SearchIndex, packed,
               t_start: float) -> dict:
     """Phase 25: the LCS walk kernel on the main path. One query of each of
@@ -1156,8 +1307,23 @@ def lcs_phase(tag: str, gpu: SearchIndex, cpu: SearchIndex, packed,
     out = {cat: time_walk(f"{tag} {cat} {queries[cat].match!r}", calls[cat],
                           iters=20)
            for cat in ("AndHighHigh", "HighPhrase", "HighSloppyPhrase")}
-    print(f"{since(t_start)} {tag} LCS walk done")
-    return out
+    # the positional walk: one launch for each Phrase and SloppyPhrase
+    # category, none for the others
+    pos = {}
+    for cat, q in queries.items():
+        ops_search.POS_WALK_LAUNCHES.reset()
+        _, pos[cat] = capture_pos(gpu, q)
+        launches = ops_search.POS_WALK_LAUNCHES.kernel
+        if launches != cat.endswith("Phrase"):
+            raise AssertionError(f"{tag} {cat} {q.match!r}: {launches} "
+                                 "positional walk launches")
+        if launches:
+            POS_BY_PATH[f"{tag} lucene {cat}"] = launches
+    pos_out = {cat: time_pos(f"{tag} {cat} {queries[cat].match!r}",
+                             pos[cat], iters=20)
+               for cat in ("HighPhrase", "HighSloppyPhrase")}
+    print(f"{since(t_start)} {tag} LCS and positional walks done")
+    return out, pos_out
 
 
 def profile_batch(idx: SearchIndex, queries: list[SearchQuery]) -> dict:
@@ -1226,6 +1392,7 @@ def run_counted(name: str, idx, queries: list[SearchQuery],
     ps.LAUNCHES.reset()
     gb.LAUNCHES.reset()
     ops_search.WALK_LAUNCHES.reset()
+    ops_search.POS_WALK_LAUNCHES.reset()
     t0 = time.perf_counter()
     results = idx.search_batch(queries)
     torch.cuda.synchronize()
@@ -1237,6 +1404,8 @@ def run_counted(name: str, idx, queries: list[SearchQuery],
         SEG_BY_PATH[name] = seg
     if ops_search.WALK_LAUNCHES.kernel:
         WALK_BY_PATH[name] = ops_search.WALK_LAUNCHES.kernel
+    if ops_search.POS_WALK_LAUNCHES.kernel:
+        POS_BY_PATH[name] = ops_search.POS_WALK_LAUNCHES.kernel
     print(f"{name}: bitplane_decode launches {launches} (expected {want}), "
           f"{ps.LAUNCHES.blocks} blocks, plain decodes {plain}; "
           f"segment_sum_ordered launches {seg} (expected "
@@ -4316,7 +4485,7 @@ def smoke(shards_job, big_job) -> int:
     print(f"{since(t_start)} {tag} config 3 done")
 
     # 25. the LCS walk kernel: the 12 non-term Lucene categories at 1M
-    walk = lcs_phase(tag, gpu, cpu, big, t_start)
+    walk, pos = lcs_phase(tag, gpu, cpu, big, t_start)
 
     # 9c, 9d. filter-first: MATCH-less scans, single terms under a filter
     scans = scan_queries(np.random.RandomState(9), BATCH)
@@ -4518,6 +4687,15 @@ def smoke(shards_job, big_job) -> int:
         "ms": {c: t["ms"] for c, t in walk.items()},
         "plain_ms": {c: t["plain_ms"] for c, t in walk.items()},
         "bound_ms": {c: t["bound_ms"] for c, t in walk.items()},
+        "bound_by": "bytes", "library_ms": None}, {
+        "name": "pos_walk", "route": "cuda", "source": POS_SOURCE,
+        "replaces": POS_REPLACES,
+        "launches": sum(POS_BY_PATH.values()),
+        "launches_by_path": POS_BY_PATH,
+        "max_abs_err": max(t["max_abs_err"] for t in pos.values()),
+        "ms": {c: t["ms"] for c, t in pos.items()},
+        "plain_ms": {c: t["plain_ms"] for c, t in pos.items()},
+        "bound_ms": {c: t["bound_ms"] for c, t in pos.items()},
         "bound_by": "bytes", "library_ms": None}]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -33,7 +33,8 @@ _lib: ctypes.CDLL | None = None
 
 @dataclass
 class KernelLaunches:
-    """A kernel's launch counts (the segment sum's, the LCS walk's)."""
+    """A kernel's launch counts (the segment sum's, the LCS and positional
+    walks')."""
     kernel: int = 0      # kernel calls
     positions: int = 0   # positions those calls covered
     plain: int = 0       # plain-PyTorch calls (CPU tensors)
@@ -96,6 +97,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.mt_lcs_walk_sizes
+    fn.argtypes = []
+    fn.restype = ctypes.c_int64
+    fn = lib.mt_pos_walk
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.mt_pos_walk_sizes
     fn.argtypes = []
     fn.restype = ctypes.c_int64
 

@@ -27,8 +27,11 @@ The program reads each packed term slot's rowid, tf and fieldmask planes
 decoded. ``packed_windows`` lists the packed windows a query's program
 reads, so that the caller can decode the windows of a whole batch in one
 ``packed_store.decode_grouped`` call (one launch of the CUDA bit-plane
-kernel on the card) and hand each program its slices. The rest is eager
-PyTorch ops.
+kernel on the card) and hand each program its slices. On the card the
+phrase and proximity nodes (``pos_walk``, csrc/pos_walk.cu) and the
+proximity rankers' LCS pass (``lcs_walk``, csrc/lcs_walk.cu) are one
+kernel launch each where their selection rules take the plan; the rest,
+and everything on CPU tensors, is eager PyTorch ops.
 
 Integer weights must equal the JAX package's bit for bit, so:
 - every float step is its own eager op (no fused multiply-add), and the
@@ -254,6 +257,15 @@ def _collect_phrase_nodes(expr: tuple) -> list[tuple]:
     return []
 
 
+def _member_deltas(node: tuple) -> tuple:
+    """A phrase node's members' key deltas from its anchor, or a proximity
+    node's members' query-position deltas: the node's own, else 0, 1, ..."""
+    if node[0] == "phrase":
+        return node[2] if len(node) > 2 else tuple(range(len(node[1])))
+    return (node[3] if len(node) > 3 and node[3]
+            else tuple(range(len(node[1]))))
+
+
 def _eval_phrase_node(node: tuple, hits_of, data: dict, N: int, size: int,
                       to_idx, n_hit_iters: int):
     """One positional node over sorted hit slices: -> (match bool[Z], tf
@@ -265,7 +277,8 @@ def _eval_phrase_node(node: tuple, hits_of, data: dict, N: int, size: int,
     The JAX package's formulation, step for step (FSMphrase,
     FSMproximity_c, FSMmultinear, SENTENCE/PARAGRAPH units). As there, tf
     counts every anchored occurrence, also where the reference FSM counts
-    only non-overlapping ones (self-overlapping phrases)."""
+    only non-overlapping ones (self-overlapping phrases). The plain
+    version of ``pos_walk`` for the nodes ``takes_pos_walk`` accepts."""
     op = node[0]
     slots_t = node[1]
     a_w = None
@@ -337,7 +350,7 @@ def _eval_phrase_node(node: tuple, hits_of, data: dict, N: int, size: int,
     elif op == "phrase":
         # every member at its query-position delta from the anchor
         a_row, a_key, ok = hits_of(slots_t[0])
-        deltas = node[2] if len(node) > 2 else tuple(range(len(slots_t)))
+        deltas = _member_deltas(node)
         for qi in range(1, len(slots_t)):
             tgt = a_key + deltas[qi]
             b_row, b_key, b_msk = hits_of(slots_t[qi])
@@ -347,8 +360,7 @@ def _eval_phrase_node(node: tuple, hits_of, data: dict, N: int, size: int,
         # proximity "..."~n: some hit p of any member (the window end) has
         # every member within [p - (qlen + n - 1), p]
         ndist = node[2]
-        qdeltas = (node[3] if len(node) > 3 and node[3]
-                   else tuple(range(len(slots_t))))
+        qdeltas = _member_deltas(node)
         win = qdeltas[-1] + ndist
         rows_l, keys_l, msks_l = zip(*[hits_of(s) for s in slots_t])
         a_row = torch.cat(rows_l)
@@ -589,7 +601,9 @@ def build_match_core(sig: PlanSig, n_rows: int, n_fields: int,
     rk_slots = ranker_term_slots(sig.expr) if use_lcs else ()
     rk_phrases = positive_phrase_nodes(sig.expr) if use_lcs else ()
     walk = takes_lcs_walk(sig, F)
-    phrase_nodes = _collect_phrase_nodes(sig.expr)
+    phrase_nodes = list(dict.fromkeys(_collect_phrase_nodes(sig.expr)))
+    pos_nodes = [nd for nd in phrase_nodes
+                 if takes_pos_walk(nd, F)][:POS_WALK_MAX_NODES]
     # phrase members whose tfidf reaches a doc only where their node matched
     gated_nodes, _ = phrase_member_gating(sig.expr)
     gated_all = {s for slots in gated_nodes.values() for s in slots}
@@ -598,6 +612,7 @@ def build_match_core(sig: PlanSig, n_rows: int, n_fields: int,
     slot_packed = sig.slot_packed
     win_of = {sk: i for i, sk in enumerate(window_kinds(sig))}
     mva_iters = n_hit_iters or 32
+    pos_table = pos_walk_table(pos_nodes, slot_hb, size) if pos_nodes else None
 
     def fn(data, rt, decoded):
         dev = data["alive"].device
@@ -855,11 +870,22 @@ def build_match_core(sig: PlanSig, n_rows: int, n_fields: int,
             tfidf = tfidf + torch.where(
                 acc > 0, acc / (acc + K1) * float(rt["gidf"][gi]), 0.0)
 
-        # ---- positional nodes ----
-        phrase_results = {
-            node: _eval_phrase_node(node, slot_hits, data, N, size, to_idx,
-                                    n_hit_iters)
-            for node in phrase_nodes}
+        # ---- positional nodes: (match, tf, anchor_row, anchor_key, ok,
+        # a_w) each; the positional walk's nodes (one kernel launch on the
+        # card) leave the anchors None, their hit slices' raw windows ----
+        phrase_results: dict = {}
+        if pos_table is not None and dev.type == "cuda":
+            trace.count("pos_walk", len(pos_nodes))
+            for node, (m, tf, ok, a_w) in zip(pos_nodes, pos_walk(
+                    pos_table, data["hit_rowid"], data["hit_packed"],
+                    rt["hit_starts"], rt["hit_lengths"],
+                    rows_vec if sig.sparse else None)):
+                phrase_results[node] = (m, tf, None, None, ok, a_w)
+        for node in phrase_nodes:
+            if node not in phrase_results:
+                trace.count("pos_eager")
+                phrase_results[node] = _eval_phrase_node(
+                    node, slot_hits, data, N, size, to_idx, n_hit_iters)
 
         # gated member tfidf: one accumulator per node, each distinct member
         # slot once, reaching the docs where the node matched
@@ -977,6 +1003,9 @@ def _hit_stream(sig, rt, match, termmask, phrase_results, lim_hit_ok,
                          + ((torch.full_like(hrow, s),) if with_slot else ()))
     for node in rk_phrases:
         _, _, a_row, a_key, a_ok, a_w = phrase_results[node]
+        if a_row is None:    # the positional walk's node: its hit slices
+            a_row, a_key = (torch.cat(c) for c in zip(
+                *(slot_hits(s)[:2] for s in _walk_parts(node))))
         g = node_gate(node)
         if g is not None:
             a_ok = a_ok & g[to_idx(a_row)]
@@ -1332,26 +1361,28 @@ def _walk_lists(data, rt, phrase_results, lim_hit_ok, rk_slots, rk_phrases,
     """The walk's lists, in the hit stream's order (its tie order): each
     ranker term slot's raw hit window (the field-end flag masked in the
     kernel; a limited slot's qualifying hits), then each positional
-    node's anchors, one list per part of ``_walk_parts``."""
+    node's anchors, one list per part of ``_walk_parts``: the part's raw
+    hit window, emitting where the node's ``ok`` holds."""
     qpos = rt["qpos"]
+
+    def hit_window(s: int) -> tuple:
+        st = int(rt["hit_starts"][s])
+        return (window(data["hit_rowid"], st, slot_hb[s]),
+                window(data["hit_packed"], st, slot_hb[s]),
+                int(rt["hit_lengths"][s]), HITMAN_KEY_MASK)
     out = []
     for s in rk_slots:
-        st = int(rt["hit_starts"][s])
-        out.append(HitList(window(data["hit_rowid"], st, slot_hb[s]),
-                           window(data["hit_packed"], st, slot_hb[s]),
-                           int(rt["hit_lengths"][s]), HITMAN_KEY_MASK,
-                           int(qpos[s]), 1, 1, lim_hit_ok.get(s),
-                           slot_gate(s)))
+        out.append(HitList(*hit_window(s), int(qpos[s]), 1, 1,
+                           lim_hit_ok.get(s), slot_gate(s)))
     for node in rk_phrases:
-        _, _, a_row, a_key, a_ok, a_w = phrase_results[node]
+        _, _, _, _, a_ok, a_w = phrase_results[node]
         g = node_gate(node)
         n_words = len(node[1])
         qp = int(qpos[node[1][0]])
         off = 0
         for s in _walk_parts(node):
             part = slice(off, off + slot_hb[s])
-            out.append(HitList(a_row[part], a_key[part],
-                               int(rt["hit_lengths"][s]), -1, qp, n_words,
+            out.append(HitList(*hit_window(s), qp, n_words,
                                n_words if a_w is None else a_w[part],
                                a_ok[part], g))
             off += slot_hb[s]
@@ -1391,6 +1422,24 @@ def _ptr(t: torch.Tensor | None, dtype: torch.dtype, device: torch.device,
                          f"on {device}, got {t.dtype} {tuple(t.shape)} on "
                          f"{t.device}")
     return t.data_ptr()
+
+
+def _launch(name: str, args: ctypes.Structure, sizes: int,
+            dev: torch.device) -> None:
+    """One launch of csrc/<name>.cu's kernel on ``dev``'s current stream,
+    ``args`` passed by value, once the source's argument layout (its
+    ``mt_<name>_sizes()``) is found equal to the wrapper's ``sizes``;
+    raises on CPU tensors and on a refused launch."""
+    if dev.type != "cuda":
+        raise ValueError(f"csrc/{name}.cu runs on CUDA tensors, got {dev}")
+    lib = _build.load_library()
+    if getattr(lib, f"mt_{name}_sizes")() != sizes:
+        raise RuntimeError(f"csrc/{name}.cu's argument layout differs from "
+                           "the wrapper's")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, f"mt_{name}")(ctypes.byref(args), stream)
+    _build.check(rc, name)
 
 
 def lcs_walk(lists: list[HitList], rows: torch.Tensor,
@@ -1434,16 +1483,160 @@ def lcs_walk(lists: list[HitList], rows: torch.Tensor,
         arg.qpos = h.qpos
         arg.span = h.span
         arg.key_mask = h.key_mask
-    lib = _build.load_library()
-    if lib.mt_lcs_walk_sizes() != _WALK_SIZES:
-        raise RuntimeError("csrc/lcs_walk.cu's argument layout differs from "
-                           "the wrapper's")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mt_lcs_walk(ctypes.byref(a), stream)
-    _build.check(rc, "lcs_walk")
+    _launch("lcs_walk", a, _WALK_SIZES, dev)
     WALK_LAUNCHES.add(kernel=1, positions=size)
     return out
+
+
+# --------------------------------------------------------------------------
+# the positional walk: the phrase and proximity nodes as one kernel on the
+# card
+# --------------------------------------------------------------------------
+POS_WALK_MAX_NODES = 8     # csrc/pos_walk.cu kMaxNodes: nodes per launch
+POS_WALK_MAX_MEMBERS = 8   # csrc/pos_walk.cu kMaxMembers
+# keys of fields >= 128 are negative int32s, stored after the positive ones:
+# a window's signed (row, key) order, which the binary search needs, holds
+# only below
+POS_WALK_MAX_FIELDS = 128
+_POS_THREADS = 256         # csrc/pos_walk.cu kThreads
+
+POS_WALK_LAUNCHES = _build.KernelLaunches()
+
+
+def takes_pos_walk(node: tuple, n_fields: int) -> bool:
+    """Whether a positional node runs in the positional walk on the card
+    (CUDA tensors are the rule's other half; CPU tensors keep the eager
+    ``_eval_phrase_node``): a phrase or proximity node of 1 to
+    ``POS_WALK_MAX_MEMBERS`` members, each a slot's hit window, on an
+    index of at most ``POS_WALK_MAX_FIELDS`` fields. NEAR, SENTENCE,
+    PARAGRAPH and bigram phrases stay eager. A program takes at most
+    ``POS_WALK_MAX_NODES`` such nodes, the first in tree order."""
+    return (node[0] in ("phrase", "proximity")
+            and 1 <= len(node[1]) <= POS_WALK_MAX_MEMBERS
+            and n_fields <= POS_WALK_MAX_FIELDS)
+
+
+class _PosMember(ctypes.Structure):
+    _fields_ = [("row", ctypes.c_void_p), ("key", ctypes.c_void_p),
+                ("n", ctypes.c_int32), ("hb", ctypes.c_int32),
+                ("delta", ctypes.c_int32), ("pad", ctypes.c_int32)]
+
+
+class _PosNode(ctypes.Structure):
+    _fields_ = [("ok", ctypes.c_void_p), ("a_w", ctypes.c_void_p),
+                ("tf", ctypes.c_void_p), ("n_anchors", ctypes.c_int32),
+                ("first_block", ctypes.c_int32),
+                ("n_members", ctypes.c_int32), ("proximity", ctypes.c_int32),
+                ("win", ctypes.c_int32), ("pad", ctypes.c_int32),
+                ("m", _PosMember * POS_WALK_MAX_MEMBERS)]
+
+
+class _PosArgs(ctypes.Structure):
+    _fields_ = [("rows", ctypes.c_void_p), ("size", ctypes.c_int64),
+                ("n_nodes", ctypes.c_int32), ("n_blocks", ctypes.c_int32),
+                ("nodes", _PosNode * POS_WALK_MAX_NODES)]
+
+
+_POS_SIZES = (ctypes.sizeof(_PosArgs) << 32) | ctypes.sizeof(_PosNode)
+
+
+class PosTable(NamedTuple):
+    """A program's positional walk as its plan fixes it: the nodes, the
+    kernel's argument with every plan-level field set (``_PosArgs``
+    bytes), each node's part of the outputs (its first entry in the flat
+    ok array, in the flat a_w array or -1 for a phrase, which has none,
+    and its anchor count), the arrays' lengths, the position count."""
+    nodes: tuple
+    args: bytes
+    parts: tuple
+    n_ok: int
+    n_aw: int
+    size: int
+
+
+def pos_walk_table(nodes: list[tuple], slot_hb: tuple, size: int) -> PosTable:
+    """The plan-level half of the positional walk over ``nodes`` (each
+    ``takes_pos_walk``, at most ``POS_WALK_MAX_NODES``) in a program of
+    ``size`` positions whose slot hit windows hold ``slot_hb`` entries.
+    A node's anchors are laid out as ``_eval_phrase_node`` lays them: the
+    anchor slot's window for a phrase, the members' windows end to end for
+    a proximity node."""
+    if len(nodes) > POS_WALK_MAX_NODES:
+        raise ValueError(f"positional walk takes at most {POS_WALK_MAX_NODES}"
+                         f" nodes, got {len(nodes)}")
+    a = _PosArgs()
+    a.size = size
+    a.n_nodes = len(nodes)
+    parts = []
+    n_ok = n_aw = blocks = 0
+    for nd, node in zip(a.nodes, nodes):
+        slots = node[1]
+        prox = node[0] == "proximity"
+        deltas = _member_deltas(node)
+        if prox:
+            nd.win = _i32(deltas[-1] + node[2])
+            n = sum(slot_hb[s] for s in slots)
+        else:
+            n = slot_hb[slots[0]]
+        nd.n_anchors = n
+        nd.first_block = blocks
+        nd.n_members = len(slots)
+        nd.proximity = int(prox)
+        for m, s, d in zip(nd.m, slots, deltas):
+            m.hb = slot_hb[s]
+            m.delta = _i32(d)
+        parts.append((n_ok, n_aw if prox else -1, n))
+        n_ok += n
+        n_aw += n if prox else 0
+        blocks += (n + _POS_THREADS - 1) // _POS_THREADS
+    a.n_blocks = blocks
+    return PosTable(tuple(nodes), bytes(a), tuple(parts), n_ok, n_aw, size)
+
+
+def pos_walk(table: PosTable, hit_rowid: torch.Tensor,
+             hit_packed: torch.Tensor, hit_starts, hit_lengths,
+             rows: torch.Tensor | None) -> list[tuple]:
+    """The positional nodes of ``table``, one launch of csrc/pos_walk.cu on
+    CUDA tensors: -> per node (match bool[size], tf i32[size], ok
+    bool[anchors], a_w i32[anchors] or None for a phrase), each as
+    ``_eval_phrase_node`` gives them (a_w read only where ok holds). Slot s
+    reads ``hit_lengths[s]`` valid entries of its window of the table's
+    length at ``hit_starts[s]`` in ``hit_rowid`` / ``hit_packed`` (int32,
+    the field-end flag masked in the kernel). ``rows`` (int32 [size],
+    ascending) maps a row to its position as ``to_idx`` does in a sparse
+    or filter-first space; None: dense, the row is the position. Its plain
+    version is ``_eval_phrase_node``, which CPU tensors take."""
+    dev = hit_rowid.device
+    size = table.size
+    H = hit_rowid.shape[0]
+    row0 = _ptr(hit_rowid, torch.int32, dev, 0, "hit_rowid")
+    key0 = _ptr(hit_packed, torch.int32, dev, H, "hit_packed")
+    tf = torch.zeros((len(table.nodes), size), dtype=torch.int32, device=dev)
+    ok = torch.empty(table.n_ok, dtype=torch.bool, device=dev)
+    a_w = (torch.empty(table.n_aw, dtype=torch.int32, device=dev)
+           if table.n_aw else None)
+    a = _PosArgs.from_buffer_copy(table.args)
+    a.rows = 0 if rows is None else _ptr(rows, torch.int32, dev, size, "rows")
+    tf0, ok0 = tf.data_ptr(), ok.data_ptr()
+    for k, (nd, node, (o, w, _)) in enumerate(zip(a.nodes, table.nodes,
+                                                  table.parts)):
+        nd.tf = tf0 + 4 * k * size
+        nd.ok = ok0 + o
+        if w >= 0:
+            nd.a_w = a_w.data_ptr() + 4 * w
+        for m, s in zip(nd.m, node[1]):
+            st = int(hit_starts[s])
+            if st < 0 or st + m.hb > H:
+                raise ValueError(f"positional walk: slot {s}'s window "
+                                 f"[{st}, {st + m.hb}) runs past {H} hits")
+            m.row = row0 + 4 * st
+            m.key = key0 + 4 * st
+            m.n = min(int(hit_lengths[s]), m.hb)
+    _launch("pos_walk", a, _POS_SIZES, dev)
+    POS_WALK_LAUNCHES.add(kernel=1, positions=table.n_ok)
+    match = tf > 0
+    return [(match[k], tf[k], ok[o:o + n], None if w < 0 else a_w[w:w + n])
+            for k, (o, w, n) in enumerate(table.parts)]
 
 
 def build_kernel(sig: PlanSig, n_rows: int, n_fields: int,

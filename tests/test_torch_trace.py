@@ -6,7 +6,8 @@ Covered: one record per request with the nesting of the layers
 program, fetch, unpack; finish; ``ShardedIndex``: request > prep > plan;
 decode per part; program and prelude per part; merge; fetch; finish), every
 span inside its parent and the request, children never longer than their
-parent; the plan-cache counters and the hit-stream rankers' ``lcs_eager``;
+parent; the plan-cache counters, the hit-stream rankers' ``lcs_eager`` and
+the positional nodes' ``pos_eager``;
 searches opened inside an open request (an outer ``request``, an RT
 table's segments, a distributed table's fallback) joining it; the ring
 of the last ``KEEP`` records; records kept apart per thread; ``mt.*``
@@ -110,8 +111,10 @@ def test_batch_is_one_record_nested_by_layer(index):
     kids = _names(rec, rnd[0])
     assert kids[0] == "decode" and kids[-2:] == ["fetch", "unpack"]
     assert set(kids[1:-2]) == {"program"} and 1 <= len(kids) - 3 <= 2
-    # both programs rank by the hit stream: on the CPU, its eager pass
-    assert rec.counters == {"plan_cache_miss": 2, "lcs_eager": 2}
+    # both programs rank by the hit stream and the second holds a phrase:
+    # on the CPU, the eager pass and the eager node
+    assert rec.counters == {"plan_cache_miss": 2, "lcs_eager": 2,
+                            "pos_eager": 1}
 
 
 def test_same_query_twice_misses_then_hits(index):
@@ -145,8 +148,9 @@ def test_sharded_batch_spans(sharded):
             assert _names(rec, i) == ["plan"]
     assert _plan_children(rec) == [["parse", "plan_query"]] * 3
     # the union planner keeps no plan cache and counts nothing; each of
-    # the 4 shards' programs of the 3 queries ranks by the eager hit stream
-    assert rec.counters == {"lcs_eager": 12}
+    # the 4 shards' programs of the 3 queries ranks by the eager hit
+    # stream, and the phrase query's evaluates its node eager
+    assert rec.counters == {"lcs_eager": 12, "pos_eager": 4}
 
 
 def _outer(index, sharded):
