@@ -301,23 +301,26 @@ results are held equal to the same queries on ``device="cpu"`` (in phase
     one kernel call and results equal to the CPU's; the kernel bit-exact
     against the eager hit stream (its plain version, the same query with
     the walk refused) on the AndHighHigh, HighPhrase and HighSloppyPhrase
-    programs, and timed there (device time with L2 flushed, per-call times
-    of the wrapper and the eager pass, bytes and bound).
-    ``chip_lcs_walk.py`` times the same at the benchmark's shapes. The
-    positional walk (csrc/pos_walk.cu) in the same queries: one launch
-    for each Phrase and SloppyPhrase category (counted per path with the
-    other paths' in ``POS_BY_PATH``), none for the others, bit-exact
-    against the eager nodes (the query with the walk refused) and timed
-    at HighPhrase and HighSloppyPhrase (device time with L2 flushed, the
-    wrapper's host time, per-call times of the wrapper and the eager
-    nodes, bytes and bound); ``chip_pos_walk.py`` times it at the
-    benchmark's shapes.
+    programs, and timed there. The positional walk (csrc/pos_walk.cu) in
+    the same queries: one launch for each Phrase and SloppyPhrase
+    category (counted per path with the other paths' in
+    ``POS_BY_PATH``), none for the others, bit-exact against the eager
+    nodes (the query with the walk refused) and timed at HighPhrase and
+    HighSloppyPhrase. ``capture`` runs each query with the kernel and
+    again with it refused; ``time_kernel`` times both kernels.
+    ``chip_walks.py`` times both walks at the benchmark's shapes.
 Each batch of phases 5-13 and 15-20 prints its warm walls and one profiled
 run of at most its first 16 queries (4 of a PACKEDFACTORS() or config-5
 batch): device time, busy share, kernel launches, host waits and copies.
-Every check of a result and every launch count raises on a failure; a
-time does not: where the profiler recorded no launch of a kernel that the
-counters saw, the run prints so and times the kernel with CUDA events.
+Every hand kernel is timed by ``time_kernel``, one recipe: bit-exact
+against its plain version first, then CUDA events in turns, the device
+time from the profiler, bytes and bound. A kernel's entry
+(``decode_entry``, ``segment_entry``, ``walk_entry``, ``pos_entry``)
+supplies its call, its plain version, the comparison, its profiler events
+and its bytes. Every check of a result and every launch count raises on a
+failure; a time does not: where the profiler recorded no launch of a
+kernel that the counters saw, the run prints so and times the kernel with
+CUDA events.
 
 The last three lines of standard output are one JSON object with the
 kernels' numbers, the card's name and power limit, then
@@ -373,7 +376,6 @@ POS_REPLACES = ("manticoresearch_tpu/ops/search.py _pred_scan under "
                 "_eval_phrase_node (XLA, no Pallas)")
 SEG_SOURCE = "manticoresearch_tpu_torch/csrc/segment_sum.cu"
 SEG_REPLACES = "manticoresearch_tpu/ops/groupby.py:145"
-SEG_EVENT = "seg_"         # its two kernels: seg_prep_kernel, seg_walk_kernel
 # latency of one dependent __fadd_rn on Hopper, in SM cycles: the ordered
 # sum's chain bound is a run's non-+0.0 members times this
 FADD_CYCLES = 4
@@ -982,55 +984,114 @@ def timed_calls(fn, iters: int, sleep_cycles: int, before=None):
     return prof.events(), [a.elapsed_time(b) for a, b in pairs]
 
 
-def kernel_device_ms(items: list, iters: int, flush: bool) -> float:
-    """Device time of one grouped launch, optionally with the L2 cache
-    flushed by a 64 MB write before each launch (outside the timed pair):
-    the mean of the launches the profiler recorded, or where it recorded
-    none, CUDA events around each call (the work list's copy included).
-    Launches the profiler missed are printed; the run goes on."""
+def time_kernel(what: str, kernel, plain, differ, events: dict, byts: int,
+                iters: int, plain_name: str = "plain version",
+                flush: bool = True, calls: int = 1,
+                library: tuple | None = None, bound=None, **extras) -> dict:
+    """A hand kernel checked and timed by the one recipe of this run.
+
+    ``kernel`` and ``plain`` are functions of no arguments that run the
+    kernel's wrapper and its plain version on the same ``calls`` calls;
+    every time below is per call. ``differ(got, want)`` counts the entries
+    where their outputs differ: any raises. ``events`` maps each of the
+    kernel's profiler event names to its launches per run; ``byts`` is the
+    bytes a run must move. Then, after the check: CUDA events over
+    back-to-back runs in turns plain, library, kernel, kernel, library,
+    plain (``library``: (its name, a run of a PyTorch call on the card
+    that does the same work), where there is one); between the kernel's
+    turns the host clock over back-to-back runs (the wrapper's enqueue);
+    the device time from ``timed_calls``, with L2 flushed by a 64 MB write
+    before each run where ``flush``: the mean of each event's recorded
+    launches, else, printed, CUDA events around each run; the bound: the
+    bytes over 3.35 TB/s, or where given ``bound()``, read after the
+    timing: (bound_ms, bound_by and their parts, a note to print).
+    -> those numbers with ``extras``."""
     from torch.autograd import DeviceType
+    want, got = plain(), kernel()
+    if library:
+        library[1]()
+    torch.cuda.synchronize()
+    bad = differ(got, want)
+    if bad:
+        raise AssertionError(f"{what}: {bad} entries differ from the "
+                             f"{plain_name}")
+    few = max(iters // 4, 3)
+    p1 = _event_ms(plain, few)
+    l1 = library and _event_ms(library[1], iters)
+    k1 = _event_ms(kernel, iters)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        kernel()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    k2 = _event_ms(kernel, iters)
+    l2 = library and _event_ms(library[1], iters)
+    p2 = _event_ms(plain, few)
     scrub = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
-    ps.decode_grouped(items)
-    torch.cuda.synchronize()
-    events, event_ms = timed_calls(lambda: ps.decode_grouped(items), iters,
-                                   SLEEP_CYCLES,
-                                   (lambda: scrub.fill_(1)) if flush else None)
-    us = [e.time_range.elapsed_us() for e in events
-          if e.device_type == DeviceType.CUDA and KERNEL_EVENT in e.name]
-    if len(us) < iters:
-        print(f"  the profiler recorded {len(us)} of {iters} {KERNEL_EVENT} "
-              f"launches; CUDA events around each call: "
+    prof, event_ms = timed_calls(kernel, iters,
+                                 SLEEP_CYCLES * max(calls // 8, 1),
+                                 (lambda: scrub.fill_(1)) if flush else None)
+    us = {name: [e.time_range.elapsed_us() for e in prof
+                 if e.device_type == DeviceType.CUDA and name in e.name]
+          for name in events}
+    if any(len(us[name]) != iters * n for name, n in events.items()):
+        print(f"  the profiler recorded { {k: len(u) for k, u in us.items()} }"
+              f" of { {k: iters * n for k, n in events.items()} } launches "
+              f"of {what}; CUDA events around each run: "
               f"{np.mean(event_ms) * 1e3:.2f} us")
-    if us:
-        return sum(us) / len(us) / 1e3
-    return float(np.mean(event_ms))
-
-
-def time_decode(name: str, items: list, iters: int, flush: bool) -> dict:
-    """Kernel device time, per-call times of the wrapper and of the plain
-    version (CUDA events over back-to-back calls, in turns plain, kernel,
-    kernel, plain), bytes and bound."""
-    byts = decode_bytes(items)
-    for fn in (lambda: ps.decode_grouped(items), lambda: plain_grouped(items)):
-        fn()
-    torch.cuda.synchronize()
-    p1 = _event_ms(lambda: plain_grouped(items), max(iters // 4, 3))
-    k1 = _event_ms(lambda: ps.decode_grouped(items), iters)
-    k2 = _event_ms(lambda: ps.decode_grouped(items), iters)
-    p2 = _event_ms(lambda: plain_grouped(items), max(iters // 4, 3))
-    dev_ms = kernel_device_ms(items, iters, flush)
-    bound_ms = byts / HBM_BYTES_PER_S * 1e3
-    blocks = sum(w.shape[0] for w, _, _ in items)
-    r = dict(ms=dev_ms, call_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-             bound_ms=bound_ms, bytes=byts, blocks=blocks)
-    print(f"  K1 {name}: {len(items)} windows, {blocks} blocks, "
-          f"{byts / 1e6:.3f} MB: device {dev_ms * 1e3:.2f} us "
-          f"({byts / (dev_ms * 1e-3) / 1e9:.0f} GB/s, "
-          f"{bound_ms / dev_ms:.3f} of the bound {bound_ms * 1e3:.2f} us); "
-          f"per call {r['call_ms'] * 1e3:.2f} us; plain "
-          f"{r['plain_ms'] * 1e3:.2f} us"
-          f"{'; L2 flushed before each launch' if flush else ''}")
+    if all(us[name] or not n for name, n in events.items()):
+        run_ms = sum(np.mean(us[name]) * n
+                     for name, n in events.items() if n) / 1e3
+    else:
+        run_ms = float(np.mean(event_ms))
+    b, note = bound() if bound else (
+        dict(bound_ms=byts / HBM_BYTES_PER_S * 1e3 / calls,
+             bound_by="bytes"), "")
+    r = dict(ms=run_ms / calls, host_ms=host_ms / calls,
+             call_ms=(k1 + k2) / 2 / calls, plain_ms=(p1 + p2) / 2 / calls,
+             bytes=byts, max_abs_err=bad, **b, **extras)
+    lib = ""
+    if library:
+        r["library_ms"] = (l1 + l2) / 2 / calls
+        lib = f"; {library[0]} {r['library_ms'] * 1e3:.2f} us"
+    print(f"  {what}, {byts / 1e6:.3f} MB: device {r['ms'] * 1e3:.2f} us "
+          f"({byts / (run_ms * 1e-3) / 1e9:.0f} GB/s, "
+          f"{r['bound_ms'] / r['ms']:.3f} of the bound "
+          f"{r['bound_ms'] * 1e3:.2f} us{note}); wrapper host "
+          f"{r['host_ms'] * 1e3:.2f} us, per call {r['call_ms'] * 1e3:.2f} "
+          f"us; {plain_name} {r['plain_ms'] * 1e3:.2f} us{lib}"
+          f"{'; L2 flushed before each launch' if flush else ''}; entries "
+          f"differing from the {plain_name} {bad}")
     return r
+
+
+def kernel_line(name: str, source: str, replaces: str, by_path: dict,
+                max_err, t: dict) -> dict:
+    """One kernel's entry of the run's closing "kernels" line: its
+    launches by counted path, its largest difference from its plain
+    version, and the times of a ``time_kernel`` result ``t``, or of such
+    results by category (each time then by category)."""
+    one = t if "ms" in t else next(iter(t.values()))
+
+    def of(key: str):
+        return t[key] if t is one else {c: r[key] for c, r in t.items()}
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": max_err,
+            "ms": of("ms"), "plain_ms": of("plain_ms"),
+            "bound_ms": of("bound_ms"), "bound_by": one["bound_by"],
+            "library_ms": one.get("library_ms")}
+
+
+def decode_entry(name: str, items: list) -> dict:
+    """K1's entry of ``time_kernel``: one grouped decode of ``items``."""
+    blocks = sum(w.shape[0] for w, _, _ in items)
+    return dict(what=f"K1 {name}: {len(items)} windows, {blocks} blocks",
+                kernel=lambda: ps.decode_grouped(items)[0],
+                plain=lambda: plain_grouped(items),
+                differ=lambda got, want: int((got != want).sum()),
+                events={KERNEL_EVENT: 1}, byts=decode_bytes(items),
+                blocks=blocks)
 
 
 def walk_bytes(lists: list, size: int) -> int:
@@ -1046,158 +1107,19 @@ def walk_bytes(lists: list, size: int) -> int:
     return total
 
 
-def capture_walk(idx: SearchIndex, q: SearchQuery):
-    """One query on the card twice: first with its LCS walk kernel call
-    recorded, then with the walk refused (``takes_lcs_walk`` false) and its
-    eager hit stream recorded, the kernel's plain version; both runs must
-    give the same results. -> (the first run's result, None where the query
-    made no walk call, else (the call's arguments with the eager run's
-    bm25part, the eager pass as a function of no arguments that returns its
-    weights))."""
-    calls, eager = [], []
-    saved = (ops_search.lcs_walk, ops_search.takes_lcs_walk,
-             ops_search._hit_stream, ops_search._rank_hit_stream)
-    walk, _, hit_stream, rank = saved
-
-    def record(*args):
-        calls.append(args)
-        return walk(*args)
-
-    def stream(*args):
-        eager.append([args, None])
-        return hit_stream(*args)
-
-    def ranked(*args):
-        eager[-1][1] = args
-        return rank(*args)
-    ops_search.lcs_walk = record
-    try:
-        res = idx.search_batch([q])[0]
-        if len(calls) > 1:
-            raise AssertionError(f"{q.match!r}: {len(calls)} LCS walk calls")
-        if not calls:
-            return res, None
-        ops_search.takes_lcs_walk = lambda sig, n_fields: False
-        ops_search._hit_stream, ops_search._rank_hit_stream = stream, ranked
-        again = idx.search_batch([q])[0]
-    finally:
-        (ops_search.lcs_walk, ops_search.takes_lcs_walk,
-         ops_search._hit_stream, ops_search._rank_hit_stream) = saved
-    if len(eager) != 1 or eager[0][1] is None:
-        raise AssertionError(f"{q.match!r}: {len(eager)} eager hit streams "
-                             "with the walk refused")
-    if ((res.total_found, [(m.docid, m.weight) for m in res.matches])
-            != (again.total_found,
-                [(m.docid, m.weight) for m in again.matches])):
-        raise AssertionError(f"{q.match!r}: the walk and the eager hit "
-                             "stream give different results")
-    stream_args, rank_args = eager[0]
-
-    def plain():
-        return rank(rank_args[0], hit_stream(*stream_args),
-                    *rank_args[2:])[0]
-    lists, rows, _, fw, with_bm25 = calls[0]
-    return res, ((lists, rows, rank_args[2], fw, with_bm25), plain)
-
-
-def time_walk(name: str, call: tuple, iters: int) -> dict:
-    """The LCS walk kernel on one program's lists (``capture_walk``'s
-    call): bit-exact against the eager hit stream of the same query on the
-    card, then its device time (L2 flushed by a 64 MB write before each
-    launch; the profiler's mean, or CUDA events behind a sleep kernel where
-    it recorded none), per-call times of the wrapper and of the eager pass
-    (CUDA events over back-to-back calls, eager, kernel, kernel, eager),
-    bytes and bound."""
-    from torch.autograd import DeviceType
+def walk_entry(name: str, call: tuple) -> dict:
+    """The LCS walk's entry of ``time_kernel``: ``capture``'s call of one
+    program's lists against the same query's eager hit stream."""
     args, plain = call
-    lists, rows = args[0], args[1]
-    size = rows.shape[0]
-    want = plain()
-    got = ops_search.lcs_walk(*args)
-    torch.cuda.synchronize()
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-    if err:
-        bad = int((got != want).sum())
-        raise AssertionError(f"LCS walk {name}: {bad} of {size} positions "
-                             f"differ from the eager pass, by up to {err}")
-    p1 = _event_ms(plain, max(iters // 4, 3))
-    k1 = _event_ms(lambda: ops_search.lcs_walk(*args), iters)
-    k2 = _event_ms(lambda: ops_search.lcs_walk(*args), iters)
-    p2 = _event_ms(plain, max(iters // 4, 3))
-    scrub = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
-    events, event_ms = timed_calls(
-        lambda: ops_search.lcs_walk(*args), iters, SLEEP_CYCLES,
-        lambda: scrub.fill_(1))
-    us = [e.time_range.elapsed_us() for e in events
-          if e.device_type == DeviceType.CUDA and WALK_EVENT in e.name]
-    if len(us) < iters:
-        print(f"  the profiler recorded {len(us)} of {iters} {WALK_EVENT} "
-              f"launches; CUDA events around each call: "
-              f"{np.mean(event_ms) * 1e3:.2f} us")
-    dev_ms = sum(us) / len(us) / 1e3 if us else float(np.mean(event_ms))
-    byts = walk_bytes(lists, size)
-    bound_ms = byts / HBM_BYTES_PER_S * 1e3
+    lists, size = args[0], args[1].shape[0]
     entries = sum(h.n for h in lists)
-    r = dict(ms=dev_ms, call_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-             bound_ms=bound_ms, bytes=byts, positions=size,
-             lists=len(lists), entries=entries, max_abs_err=err)
-    print(f"  LCS walk {name}: {len(lists)} lists, {entries} entries, "
-          f"{size} positions, {byts / 1e6:.3f} MB: device "
-          f"{dev_ms * 1e3:.2f} us ({bound_ms / dev_ms:.3f} of the bound "
-          f"{bound_ms * 1e3:.2f} us); per call {r['call_ms'] * 1e3:.2f} us; "
-          f"eager {r['plain_ms'] * 1e3:.2f} us; L2 flushed before each "
-          f"launch; largest difference from the eager pass {err}")
-    return r
-
-
-def capture_pos(idx: SearchIndex, q: SearchQuery):
-    """One query on the card twice: first with its positional walk call
-    recorded, then with the walk refused (``takes_pos_walk`` false) and the
-    eager ``_eval_phrase_node`` of each of the call's nodes recorded, the
-    kernel's plain version; both runs must give the same results. -> (the
-    first run's result, None where the query made no positional walk call,
-    else (the call's arguments, the eager nodes as a function of no
-    arguments that returns each node's six fields))."""
-    calls, eager = [], []
-    saved = (ops_search.pos_walk, ops_search.takes_pos_walk,
-             ops_search._eval_phrase_node)
-    walk, _, node_fn = saved
-
-    def record(*args):
-        calls.append(args)
-        return walk(*args)
-
-    def eager_node(*args):
-        eager.append(args)
-        return node_fn(*args)
-    ops_search.pos_walk = record
-    try:
-        res = idx.search_batch([q])[0]
-        if len(calls) > 1:
-            raise AssertionError(f"{q.match!r}: {len(calls)} positional "
-                                 "walk calls")
-        if not calls:
-            return res, None
-        ops_search.takes_pos_walk = lambda node, n_fields: False
-        ops_search._eval_phrase_node = eager_node
-        again = idx.search_batch([q])[0]
-    finally:
-        (ops_search.pos_walk, ops_search.takes_pos_walk,
-         ops_search._eval_phrase_node) = saved
-    nodes = calls[0][0].nodes
-    eager = [a for a in eager if a[0] in nodes]
-    if [a[0] for a in eager] != list(nodes):
-        raise AssertionError(f"{q.match!r}: the walk refused ran "
-                             f"{len(eager)} of its {len(nodes)} nodes eager")
-    if ((res.total_found, [(m.docid, m.weight) for m in res.matches])
-            != (again.total_found,
-                [(m.docid, m.weight) for m in again.matches])):
-        raise AssertionError(f"{q.match!r}: the positional walk and the "
-                             "eager nodes give different results")
-
-    def plain():
-        return [node_fn(*a) for a in eager]
-    return res, (calls[0], plain)
+    return dict(what=f"LCS walk {name}: {len(lists)} lists, {entries} "
+                f"entries, {size} positions",
+                kernel=lambda: ops_search.lcs_walk(*args), plain=plain,
+                differ=lambda got, want: int((got != want).sum()),
+                events={WALK_EVENT: 1}, byts=walk_bytes(lists, size),
+                plain_name="eager pass", positions=size, lists=len(lists),
+                entries=entries)
 
 
 def pos_differences(got: list, want: list) -> int:
@@ -1212,15 +1134,15 @@ def pos_differences(got: list, want: list) -> int:
     return bad
 
 
-def pos_bytes(args: tuple) -> int:
+def pos_bytes(args: tuple, n_ok: int) -> int:
     """Bytes one positional walk must move: each node's distinct member
     windows' valid entries read once (row and key), ok (1 B) and a_w (4 B,
     proximity) written per anchor, the positions' rows read once where the
-    space is sparse, and 4 B of tf per ok anchor (filled in after the
-    call, from its output)."""
+    space is sparse, and 4 B of tf per ok anchor (``n_ok``, counted in a
+    call's output)."""
     table, _, _, _, lengths, rows = args
     a = ops_search._PosArgs.from_buffer_copy(table.args)
-    total = table.n_ok + 4 * table.n_aw
+    total = table.n_ok + 4 * table.n_aw + 4 * n_ok
     total += 4 * table.size * (rows is not None)
     for nd, node in zip(a.nodes, table.nodes):
         hb = {s: m.hb for m, s in zip(nd.m, node[1])}
@@ -1228,63 +1150,99 @@ def pos_bytes(args: tuple) -> int:
     return total
 
 
-def time_pos(name: str, call: tuple, iters: int) -> dict:
-    """The positional walk kernel on one program's nodes
-    (``capture_pos``'s call): bit-exact against the eager nodes of the same
-    query on the card, then its device time (L2 flushed by a 64 MB write
-    before each launch; the profiler's mean, or CUDA events behind a sleep
-    kernel where it recorded none), the wrapper's host time per call (the
-    host clock over back-to-back calls, enqueue only), per-call times of
-    the wrapper and of the eager nodes (CUDA events over back-to-back
-    calls, eager, kernel, kernel, eager), bytes and bound."""
-    from torch.autograd import DeviceType
+def pos_entry(name: str, call: tuple) -> dict:
+    """The positional walk's entry of ``time_kernel``: ``capture``'s call
+    of one program's nodes against the same query's eager nodes."""
     args, plain = call
     table = args[0]
-    want = plain()
-    got = ops_search.pos_walk(*args)
-    torch.cuda.synchronize()
-    bad = pos_differences(got, want)
-    if bad:
-        raise AssertionError(f"positional walk {name}: {bad} entries differ "
-                             "from the eager nodes")
-    n_ok = sum(int(ok.sum()) for _, _, ok, _ in got)
+    n_ok = sum(int(ok.sum()) for _, _, ok, _ in ops_search.pos_walk(*args))
+    return dict(what=f"positional walk {name}: {len(table.nodes)} nodes, "
+                f"{table.n_ok} anchors ({n_ok} ok), {table.size} positions",
+                kernel=lambda: ops_search.pos_walk(*args), plain=plain,
+                differ=pos_differences, events={POS_EVENT: 1},
+                byts=pos_bytes(args, n_ok), plain_name="eager nodes",
+                positions=table.size, nodes=len(table.nodes),
+                anchors=table.n_ok, ok=n_ok)
 
-    def walk():
-        return ops_search.pos_walk(*args)
-    p1 = _event_ms(plain, max(iters // 4, 3))
-    k1 = _event_ms(walk, iters)
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        walk()
-    host_ms = (time.perf_counter() - t0) * 1e3 / iters
-    torch.cuda.synchronize()
-    k2 = _event_ms(walk, iters)
-    p2 = _event_ms(plain, max(iters // 4, 3))
-    scrub = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
-    events, event_ms = timed_calls(walk, iters, SLEEP_CYCLES,
-                                   lambda: scrub.fill_(1))
-    us = [e.time_range.elapsed_us() for e in events
-          if e.device_type == DeviceType.CUDA and POS_EVENT in e.name]
-    if len(us) < iters:
-        print(f"  the profiler recorded {len(us)} of {iters} {POS_EVENT} "
-              f"launches; CUDA events around each call: "
-              f"{np.mean(event_ms) * 1e3:.2f} us")
-    dev_ms = sum(us) / len(us) / 1e3 if us else float(np.mean(event_ms))
-    byts = pos_bytes(args) + 4 * n_ok
-    bound_ms = byts / HBM_BYTES_PER_S * 1e3
-    r = dict(ms=dev_ms, host_ms=host_ms, call_ms=(k1 + k2) / 2,
-             plain_ms=(p1 + p2) / 2, bound_ms=bound_ms, bytes=byts,
-             positions=table.size, nodes=len(table.nodes),
-             anchors=table.n_ok, ok=n_ok, max_abs_err=bad)
-    print(f"  positional walk {name}: {len(table.nodes)} nodes, "
-          f"{table.n_ok} anchors ({n_ok} ok), {table.size} positions, "
-          f"{byts / 1e6:.3f} MB: device {dev_ms * 1e3:.2f} us "
-          f"({bound_ms / dev_ms:.3f} of the bound {bound_ms * 1e3:.2f} us); "
-          f"wrapper host {host_ms * 1e3:.2f} us, per call "
-          f"{r['call_ms'] * 1e3:.2f} us; eager {r['plain_ms'] * 1e3:.2f} us;"
-          f" L2 flushed before each launch; entries differing from the "
-          f"eager nodes {bad}")
-    return r
+
+def capture(idx: SearchIndex, q: SearchQuery, wrapper: str, takes: str,
+            recorded: tuple, plain_of):
+    """One query on the card twice: first with its call of the kernel's
+    wrapper (``ops_search.<wrapper>``) recorded, then with the kernel
+    refused (``ops_search.<takes>`` false) and the calls of the plain
+    path's functions ``recorded`` recorded; both runs must give the same
+    results. ``plain_of(call, log)`` (the wrapper call's arguments, each
+    recorded function's calls by name) gives the call to time and the
+    plain version as a function of no arguments, or None where the
+    refused run did not do exactly the kernel's work. -> (the first run's
+    result, None where the query made no kernel call, else that pair)."""
+    saved = {name: getattr(ops_search, name)
+             for name in (wrapper, takes, *recorded)}
+    log: dict = {name: [] for name in (wrapper, *recorded)}
+
+    def hook(name: str):
+        def run(*args):
+            log[name].append(args)
+            return saved[name](*args)
+        return run
+    setattr(ops_search, wrapper, hook(wrapper))
+    try:
+        res = idx.search_batch([q])[0]
+        calls = log[wrapper]
+        if len(calls) > 1:
+            raise AssertionError(f"{q.match!r}: {len(calls)} {wrapper} calls")
+        if not calls:
+            return res, None
+        setattr(ops_search, takes, lambda *args: False)
+        for name in recorded:
+            setattr(ops_search, name, hook(name))
+        again = idx.search_batch([q])[0]
+    finally:
+        for name, fn in saved.items():
+            setattr(ops_search, name, fn)
+    if ((res.total_found, [(m.docid, m.weight) for m in res.matches])
+            != (again.total_found,
+                [(m.docid, m.weight) for m in again.matches])):
+        raise AssertionError(f"{q.match!r}: {wrapper} and its plain path "
+                             "give different results")
+    call = plain_of(calls[0], log)
+    if call is None:
+        raise AssertionError(
+            f"{q.match!r}: with {wrapper} refused the plain path made "
+            f"{ {name: len(log[name]) for name in recorded} } calls")
+    return res, call
+
+
+def lcs_plain(call: tuple, log: dict):
+    """The LCS walk's plain path: the refused run's one eager hit stream
+    and its ranking; the call takes that run's bm25part."""
+    if len(log["_hit_stream"]) != 1 or len(log["_rank_hit_stream"]) != 1:
+        return None
+    (stream_args,), (rank_args,) = (log["_hit_stream"],
+                                    log["_rank_hit_stream"])
+    lists, rows, _, fw, with_bm25 = call
+
+    def plain():
+        return ops_search._rank_hit_stream(
+            rank_args[0], ops_search._hit_stream(*stream_args),
+            *rank_args[2:])[0]
+    return (lists, rows, rank_args[2], fw, with_bm25), plain
+
+
+def pos_plain(call: tuple, log: dict):
+    """The positional walk's plain path: the refused run's eager nodes,
+    exactly the call's."""
+    nodes = call[0].nodes
+    eager = [a for a in log["_eval_phrase_node"] if a[0] in nodes]
+    if [a[0] for a in eager] != list(nodes):
+        return None
+    return call, lambda: [ops_search._eval_phrase_node(*a) for a in eager]
+
+
+# ``capture``'s arguments for each walk
+LCS_HOOKS = ("lcs_walk", "takes_lcs_walk", ("_hit_stream",
+                                            "_rank_hit_stream"), lcs_plain)
+POS_HOOKS = ("pos_walk", "takes_pos_walk", ("_eval_phrase_node",), pos_plain)
 
 
 def lcs_phase(tag: str, gpu: SearchIndex, cpu: SearchIndex, packed,
@@ -1298,29 +1256,29 @@ def lcs_phase(tag: str, gpu: SearchIndex, cpu: SearchIndex, packed,
     queries = bench_corpus.lucene_categories(packed)
     got, calls = {}, {}
     for cat, q in queries.items():
-        got[cat], calls[cat] = capture_walk(gpu, q)
+        got[cat], calls[cat] = capture(gpu, q, *LCS_HOOKS)
         if calls[cat] is None:
             raise AssertionError(f"{tag} {cat} {q.match!r}: no LCS walk "
                                  "kernel call")
     check_equal(f"{tag} lucene categories", list(queries.values()),
                 list(got.values()), cpu.search_batch(list(queries.values())))
-    out = {cat: time_walk(f"{tag} {cat} {queries[cat].match!r}", calls[cat],
-                          iters=20)
+    out = {cat: time_kernel(iters=20, **walk_entry(
+               f"{tag} {cat} {queries[cat].match!r}", calls[cat]))
            for cat in ("AndHighHigh", "HighPhrase", "HighSloppyPhrase")}
     # the positional walk: one launch for each Phrase and SloppyPhrase
     # category, none for the others
     pos = {}
     for cat, q in queries.items():
         ops_search.POS_WALK_LAUNCHES.reset()
-        _, pos[cat] = capture_pos(gpu, q)
+        _, pos[cat] = capture(gpu, q, *POS_HOOKS)
         launches = ops_search.POS_WALK_LAUNCHES.kernel
         if launches != cat.endswith("Phrase"):
             raise AssertionError(f"{tag} {cat} {q.match!r}: {launches} "
                                  "positional walk launches")
         if launches:
             POS_BY_PATH[f"{tag} lucene {cat}"] = launches
-    pos_out = {cat: time_pos(f"{tag} {cat} {queries[cat].match!r}",
-                             pos[cat], iters=20)
+    pos_out = {cat: time_kernel(iters=20, **pos_entry(
+                   f"{tag} {cat} {queries[cat].match!r}", pos[cat]))
                for cat in ("HighPhrase", "HighSloppyPhrase")}
     print(f"{since(t_start)} {tag} LCS and positional walks done")
     return out, pos_out
@@ -1407,10 +1365,10 @@ def run_counted(name: str, idx, queries: list[SearchQuery],
     if ops_search.POS_WALK_LAUNCHES.kernel:
         POS_BY_PATH[name] = ops_search.POS_WALK_LAUNCHES.kernel
     print(f"{name}: bitplane_decode launches {launches} (expected {want}), "
-          f"{ps.LAUNCHES.blocks} blocks, plain decodes {plain}; "
+          f"{ps.LAUNCHES.work} blocks, plain decodes {plain}; "
           f"segment_sum_ordered launches {seg} (expected "
           f"{'any' if want_seg is None else want_seg}), "
-          f"{gb.LAUNCHES.positions} positions; first run "
+          f"{gb.LAUNCHES.work} positions; first run "
           f"{wall * 1e3:.1f} ms")
     if launches != want or plain != 0:
         raise AssertionError(f"{name}: {launches} kernel launches and "
@@ -1714,89 +1672,56 @@ def longest_chain(v: torch.Tensor, g: torch.Tensor) -> int:
     return int(per_run.max())
 
 
-def time_segment(name: str, calls: list, iters: int) -> dict:
-    """Per-call times over a list of calls (a batch's captured calls, or
-    one case): the kernel's device time (its two launches, seg_prep and
-    seg_walk: the mean of each kernel's launches that torch.profiler
-    recorded, or where it recorded none of one, CUDA events around each
-    run of the calls), the wrapper's call time (CUDA events, in turns
-    library, kernel, kernel, library), ``index_add_`` on the card, the
-    plain version on the host CPU, and both bounds per call: bytes (8 per
-    position, 4 per group over 3.35 TB/s) and chain (the longest run's
-    non-+0.0 members times FADD_CYCLES at the SM clock nvidia-smi reports
-    right after the timing); a call's bound is the larger of the two."""
-    from torch.autograd import DeviceType
+def segment_entry(name: str, calls: list) -> dict:
+    """The segment sum's entry of ``time_kernel``: a list of calls (a
+    batch's captured calls, or one case) against the plain version on a
+    CPU copy, with ``index_add_`` on the card as the library yardstick.
+    Per run: seg_prep once per call with a group, seg_walk once per call
+    with a group and a position. Its bound per call is the larger of
+    bytes (8 per position, 4 per group over 3.35 TB/s) and chain (the
+    longest run's non-+0.0 members times FADD_CYCLES at the SM clock
+    nvidia-smi reports right after the timing)."""
     lib_in = [(v, g.long(), n) for v, g, n in calls]
     cpu_in = [(v.cpu(), g.cpu(), n) for v, g, n in calls]
-
-    def kernel():
-        for v, g, n in calls:
-            gb.segment_sum_ordered(v, g, n)
-
-    def library():
-        for v, g, n in lib_in:
-            torch.zeros(n, dtype=torch.float32, device="cuda").index_add_(
-                0, g, v)
-    kernel()
-    library()
-    torch.cuda.synchronize()
-    lib1 = _event_ms(library, iters)
-    k1 = _event_ms(kernel, iters)
-    k2 = _event_ms(kernel, iters)
-    lib2 = _event_ms(library, iters)
-    events, event_ms = timed_calls(kernel, iters,
-                                   SLEEP_CYCLES * max(len(calls) // 8, 1))
-    clock, clock_max = sm_clocks()
-    # per run of every call: seg_prep once per call with a group, seg_walk
-    # once per call with a group and a position
-    expect = {"prep": sum(n > 0 for _, _, n in calls),
-              "walk": sum(n > 0 and v.numel() > 0 for v, _, n in calls)}
-    by_kernel: dict = {k: [] for k in expect}
-    for e in events:
-        if e.device_type == DeviceType.CUDA and SEG_EVENT in e.name:
-            for k in expect:
-                if f"seg_{k}" in e.name:
-                    by_kernel[k].append(e.time_range.elapsed_us())
-    counts = {k: len(u) for k, u in by_kernel.items()}
-    if counts != {k: iters * n for k, n in expect.items()}:
-        print(f"  the profiler recorded {counts} segment-sum launches of "
-              f"{name}, of {({k: iters * n for k, n in expect.items()})}")
-    if all(counts[k] or not expect[k] for k in expect):
-        # mean of the recorded launches of each kernel
-        us = iters * sum(np.mean(by_kernel[k]) * expect[k] for k in expect
-                         if expect[k])
-    else:
-        us = sum(event_ms) * 1e3
-        print(f"  {name}: CUDA events around each run give the device time")
-    t0 = time.perf_counter()
-    for v, g, n in cpu_in:
-        gb.segment_sum_plain(v, g, n)
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    n_calls = len(calls)
-    bytes_ms = [(8 * v.numel() + 4 * n) / HBM_BYTES_PER_S * 1e3
-                for v, g, n in calls]
-    chains = [longest_chain(v, g) for v, g, _ in cpu_in]
-    chain_ms = [c * FADD_CYCLES / (clock * 1e6) * 1e3 for c in chains]
-    bound_ms = sum(max(b, c) for b, c in zip(bytes_ms, chain_ms)) / n_calls
-    bound_by = ("operations" if sum(c > b for b, c in zip(bytes_ms, chain_ms))
-                * 2 > n_calls else "bytes")
-    r = dict(ms=us / 1e3 / iters / n_calls, call_ms=(k1 + k2) / 2 / n_calls,
-             library_ms=(lib1 + lib2) / 2 / n_calls,
-             plain_ms=plain_ms / n_calls, bound_ms=bound_ms,
-             bound_by=bound_by, bytes_ms=sum(bytes_ms) / n_calls,
-             chain_ms=sum(chain_ms) / n_calls, chain=max(chains),
-             clock=clock)
     positions = [v.numel() for v, _, _ in calls]
-    print(f"  segment_sum_ordered {name}: {n_calls} calls of "
-          f"{min(positions)}-{max(positions)} positions; per call: device "
-          f"{r['ms'] * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us (by "
-          f"{bound_by}: bytes {r['bytes_ms'] * 1e3:.2f} us, chain "
-          f"{r['chain_ms'] * 1e3:.2f} us, longest chain {r['chain']} adds "
-          f"at {clock:.0f} MHz of max {clock_max:.0f}), "
-          f"{bound_ms / r['ms']:.3f} of it; wrapper {r['call_ms'] * 1e3:.2f}"
-          f" us, index_add_ on the card {r['library_ms'] * 1e3:.2f} us, "
-          f"plain version on the host CPU {r['plain_ms'] * 1e3:.2f} us")
-    return r
+
+    def bound():
+        clock, clock_max = sm_clocks()
+        bytes_ms = [(8 * v.numel() + 4 * n) / HBM_BYTES_PER_S * 1e3
+                    for v, _, n in calls]
+        chains = [longest_chain(v, g) for v, g, _ in cpu_in]
+        chain_ms = [c * FADD_CYCLES / (clock * 1e6) * 1e3 for c in chains]
+        by = ("operations" if sum(c > b for b, c in zip(bytes_ms, chain_ms))
+              * 2 > len(calls) else "bytes")
+        b = dict(bound_ms=sum(map(max, bytes_ms, chain_ms)) / len(calls),
+                 bound_by=by, bytes_ms=sum(bytes_ms) / len(calls),
+                 chain_ms=sum(chain_ms) / len(calls), chain=max(chains),
+                 clock=clock)
+        return b, (f", by {by}: bytes {b['bytes_ms'] * 1e3:.2f} us, chain "
+                   f"{b['chain_ms'] * 1e3:.2f} us, longest chain "
+                   f"{b['chain']} adds at {clock:.0f} MHz of max "
+                   f"{clock_max:.0f}")
+
+    def differ(got: list, want: list) -> int:
+        return sum(int((a.cpu().view(torch.int32)
+                        != b.view(torch.int32)).sum())
+                   for a, b in zip(got, want))
+    return dict(
+        what=f"segment_sum_ordered {name}: {len(calls)} calls of "
+        f"{min(positions)}-{max(positions)} positions",
+        kernel=lambda: [gb.segment_sum_ordered(*c) for c in calls],
+        plain=lambda: [gb.segment_sum_plain(*c) for c in cpu_in],
+        differ=differ,
+        events={"seg_prep": sum(n > 0 for _, _, n in calls),
+                "seg_walk": sum(n > 0 and v.numel() > 0
+                                for v, _, n in calls)},
+        byts=sum(8 * v.numel() + 4 * n for v, _, n in calls),
+        plain_name="plain version on the host CPU", flush=False,
+        calls=len(calls),
+        library=("index_add_ on the card", lambda: [
+            torch.zeros(n, dtype=torch.float32, device="cuda").index_add_(
+                0, g, v) for v, g, n in lib_in]),
+        bound=bound)
 
 
 SHARDS = 8        # bench.py config 5: min(8, devices) shards of the corpus
@@ -2257,11 +2182,12 @@ def rt_phase(packed, batches: dict, gpu_results: dict,
         steps.close()
         items.append(packed_windows(cq.sig, cq.slot_pb, data, cq.runtime))
     one = max(items, key=lambda it: sum(w.shape[0] for w, _, _ in it))
-    time_decode("rt chunk 0 (25,000 docs), the config-2 query with the "
-                "most blocks", one, iters=50, flush=True)
-    time_decode(f"rt chunk 0 (25,000 docs), {RT_QUERIES} config-2 queries' "
-                "windows in one list", [w for it in items for w in it],
-                iters=50, flush=True)
+    time_kernel(iters=50, **decode_entry(
+        "rt chunk 0 (25,000 docs), the config-2 query with the most blocks",
+        one))
+    time_kernel(iters=50, **decode_entry(
+        f"rt chunk 0 (25,000 docs), {RT_QUERIES} config-2 queries' windows "
+        "in one list", [w for it in items for w in it]))
     del data, items, one
 
     # state B: a write stream across MERGE_SEGMENT_LIMIT
@@ -4347,17 +4273,17 @@ def smoke(shards_job, big_job) -> int:
     # 7. timing
     for name, qs in batches.items():
         time_batch(f"200k {name}", gpu, qs, WARM_RUNS)
-    main = time_decode("main path (config-2 batch)", batch_items["config2"],
-                       iters=100, flush=True)
-    time_decode("main path (config-1 batch)", batch_items["config1"],
-                iters=100, flush=True)
+    main = time_kernel(iters=100, **decode_entry(
+        "main path (config-2 batch)", batch_items["config2"]))
+    time_kernel(iters=100, **decode_entry("main path (config-1 batch)",
+                                          batch_items["config1"]))
     gen = torch.Generator().manual_seed(7)
-    time_decode(f"c={main_c} 65536 blocks rowids",
-                [_random_window(main_c, 1 << 16, True, gen)], iters=50,
-                flush=True)
-    time_decode(f"c={main_c} {big_nb} blocks rowids (beyond L2)",
-                [_random_window(main_c, big_nb, True, gen)], iters=20,
-                flush=False)
+    time_kernel(iters=50, **decode_entry(
+        f"c={main_c} 65536 blocks rowids",
+        [_random_window(main_c, 1 << 16, True, gen)]))
+    time_kernel(iters=20, flush=False, **decode_entry(
+        f"c={main_c} {big_nb} blocks rowids (beyond L2)",
+        [_random_window(main_c, big_nb, True, gen)]))
 
     # 8. config 3 at 200k: WorkloadGen's phrases / ~5 proximity, and pairs
     # drawn from the corpus that must each find a document; dense plans
@@ -4505,8 +4431,8 @@ def smoke(shards_job, big_job) -> int:
         res, _ = run_counted(name, gpu, qs, launches_by_path)
         check_equal(name, qs, res, cpu.search_batch(qs))
         time_batch(name, gpu, qs, 3)
-    time_decode(f"{tag} config-1 batch", big_items[f"{tag} config1"],
-                iters=50, flush=True)
+    time_kernel(iters=50, **decode_entry(f"{tag} config-1 batch",
+                                         big_items[f"{tag} config1"]))
 
     # 9e. config 4 at 1M: the same two config-4 batches; the segment sums
     # of the AVG batch are kept for phase 14
@@ -4650,53 +4576,31 @@ def smoke(shards_job, big_job) -> int:
     # config-4 AVG batch's) and at the chain- and sink-bound cases
     seg_err = check_segment_kernel(seg_calls_dense + seg_calls
                                    + seg_calls_pf_dense + seg_calls_pf)
-    time_segment("200k config-4 avg batch (dense, full width)",
-                 seg_calls_dense, iters=10)
-    seg = time_segment(f"{tag} config-4 avg batch", seg_calls, iters=20)
-    time_segment("200k PACKEDFACTORS() batch (factor scatters)",
-                 seg_calls_pf_dense, iters=5)
-    time_segment(f"{tag} PACKEDFACTORS() batch (factor scatters)",
-                 seg_calls_pf, iters=5)
+    time_kernel(iters=10, **segment_entry(
+        "200k config-4 avg batch (dense, full width)", seg_calls_dense))
+    seg = time_kernel(iters=20, **segment_entry(f"{tag} config-4 avg batch",
+                                                seg_calls))
+    time_kernel(iters=5, **segment_entry(
+        "200k PACKEDFACTORS() batch (factor scatters)", seg_calls_pf_dense))
+    time_kernel(iters=5, **segment_entry(
+        f"{tag} PACKEDFACTORS() batch (factor scatters)", seg_calls_pf))
     for name, v, g, n in segment_cases():
         if name.startswith(("one group", "groups then")):
-            time_segment(name, [(torch.from_numpy(v).cuda(),
-                                 torch.from_numpy(g).cuda(), n)],
-                         iters=3 if name.startswith("one group") else 20)
+            time_kernel(
+                iters=3 if name.startswith("one group") else 20,
+                **segment_entry(name, [(torch.from_numpy(v).cuda(),
+                                        torch.from_numpy(g).cuda(), n)]))
     print(f"{since(t_start)} segment kernel done")
 
-    launches = sum(launches_by_path.values())
-    print(json.dumps({"kernels": [{
-        "name": "bitplane_decode", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "launches_by_path": launches_by_path,
-        "max_abs_err": max_err, "ms": main["ms"],
-        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-        "bound_by": "bytes", "library_ms": None}, {
-        "name": "segment_sum_ordered", "route": "cuda",
-        "source": SEG_SOURCE, "replaces": SEG_REPLACES,
-        "launches": sum(SEG_BY_PATH.values()),
-        "launches_by_path": SEG_BY_PATH, "max_abs_err": seg_err,
-        "ms": seg["ms"], "plain_ms": seg["plain_ms"],
-        "bound_ms": seg["bound_ms"], "bound_by": seg["bound_by"],
-        "library_ms": seg["library_ms"]}, {
-        "name": "lcs_walk", "route": "cuda", "source": WALK_SOURCE,
-        "replaces": WALK_REPLACES,
-        "launches": sum(WALK_BY_PATH.values()),
-        "launches_by_path": WALK_BY_PATH,
-        "max_abs_err": max(t["max_abs_err"] for t in walk.values()),
-        "ms": {c: t["ms"] for c, t in walk.items()},
-        "plain_ms": {c: t["plain_ms"] for c, t in walk.items()},
-        "bound_ms": {c: t["bound_ms"] for c, t in walk.items()},
-        "bound_by": "bytes", "library_ms": None}, {
-        "name": "pos_walk", "route": "cuda", "source": POS_SOURCE,
-        "replaces": POS_REPLACES,
-        "launches": sum(POS_BY_PATH.values()),
-        "launches_by_path": POS_BY_PATH,
-        "max_abs_err": max(t["max_abs_err"] for t in pos.values()),
-        "ms": {c: t["ms"] for c, t in pos.items()},
-        "plain_ms": {c: t["plain_ms"] for c, t in pos.items()},
-        "bound_ms": {c: t["bound_ms"] for c, t in pos.items()},
-        "bound_by": "bytes", "library_ms": None}]}))
+    print(json.dumps({"kernels": [
+        kernel_line("bitplane_decode", KERNEL_SOURCE, KERNEL_REPLACES,
+                    launches_by_path, max_err, main),
+        kernel_line("segment_sum_ordered", SEG_SOURCE, SEG_REPLACES,
+                    SEG_BY_PATH, seg_err, seg),
+        kernel_line("lcs_walk", WALK_SOURCE, WALK_REPLACES, WALK_BY_PATH,
+                    max(t["max_abs_err"] for t in walk.values()), walk),
+        kernel_line("pos_walk", POS_SOURCE, POS_REPLACES, POS_BY_PATH,
+                    max(t["max_abs_err"] for t in pos.values()), pos)]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from dataclasses import dataclass, field
 from pathlib import Path
 
@@ -33,27 +34,33 @@ _lib: ctypes.CDLL | None = None
 
 @dataclass
 class KernelLaunches:
-    """A kernel's launch counts (the segment sum's, the LCS and positional
-    walks')."""
-    kernel: int = 0      # kernel calls
-    positions: int = 0   # positions those calls covered
-    plain: int = 0       # plain-PyTorch calls (CPU tensors)
+    """A hand kernel's launch counts (the bit-plane decode's, the segment
+    sum's, the LCS and positional walks')."""
+    kernel: int = 0   # kernel launches
+    plain: int = 0    # plain-PyTorch calls (CPU tensors)
+    # what the kernel launches covered: K1's blocks, the segment sum's
+    # positions
+    work: int = 0
+    # the kernel launches by card ("cuda:1"): a distributed index's parts
+    by_device: Counter = field(default_factory=Counter)
 
     _lock: threading.Lock = field(default_factory=threading.Lock,
                                   repr=False, compare=False)
 
-    def add(self, **counts: int) -> None:
-        """Add to the named counts under a lock: a distributed table's
-        parts and an in-process agent launch from several host threads."""
+    def add(self, device=None, **counts: int) -> None:
+        """Add to the named counts (a kernel launch also to ``device``'s)
+        under a lock: a distributed table's parts and an in-process agent
+        launch from several host threads."""
         with self._lock:
             for name, n in counts.items():
                 setattr(self, name, getattr(self, name) + n)
+            if device is not None:
+                self.by_device[str(device)] += counts.get("kernel", 0)
 
     def reset(self) -> None:
         with self._lock:
-            self.kernel = 0
-            self.positions = 0
-            self.plain = 0
+            self.kernel = self.plain = self.work = 0
+            self.by_device.clear()
 
 
 def _sources() -> list[Path]:

@@ -133,7 +133,7 @@ def segment_sum_ordered(values: torch.Tensor, gid: torch.Tensor,
             values.data_ptr(), gid.data_ptr(), n, n_out, buf.data_ptr(),
             buf.data_ptr() + 4 * head, stream)
     _build.check(rc, "segment_sum_ordered")
-    LAUNCHES.add(kernel=1, positions=n)
+    LAUNCHES.add(kernel=1, work=n)
     return buf[:n_out]
 
 

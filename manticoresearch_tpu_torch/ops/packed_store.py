@@ -21,8 +21,6 @@ decoded, so a run can show which path the search took.
 """
 from __future__ import annotations
 
-import threading
-from collections import Counter
 from dataclasses import dataclass, field as dc_field
 
 import numpy as np
@@ -233,36 +231,7 @@ def _ranges_concat(offsets: np.ndarray, ids: np.ndarray,
 # --------------------------------------------------------------------------
 # decode
 # --------------------------------------------------------------------------
-@dataclass
-class LaunchCounts:
-    kernel: int = 0   # grouped CUDA bitplane_decode launches
-    blocks: int = 0   # 128-value blocks those launches decoded
-    plain: int = 0    # plain-PyTorch grouped decodes (CPU tensors)
-    # the kernel launches by card ("cuda:1"): a distributed index's parts
-    by_device: Counter = dc_field(default_factory=Counter)
-
-    _lock: threading.Lock = dc_field(default_factory=threading.Lock,
-                                     repr=False, compare=False)
-
-    def add(self, device: torch.device | None = None, **counts: int) -> None:
-        """Add to the named counts (a kernel launch also to ``device``'s)
-        under a lock: a distributed table's parts and an in-process agent
-        launch from several host threads."""
-        with self._lock:
-            for name, n in counts.items():
-                setattr(self, name, getattr(self, name) + n)
-            if device is not None:
-                self.by_device[str(device)] += counts.get("kernel", 0)
-
-    def reset(self) -> None:
-        with self._lock:
-            self.kernel = 0
-            self.blocks = 0
-            self.plain = 0
-            self.by_device.clear()
-
-
-LAUNCHES = LaunchCounts()
+LAUNCHES = _build.KernelLaunches()
 
 
 def wrap_i32(x: torch.Tensor) -> torch.Tensor:
@@ -371,7 +340,7 @@ def decode_grouped(items: list[tuple]) -> tuple[torch.Tensor, np.ndarray]:
         rc = lib.mt_bitplane_decode_grouped(
             table_dev.data_ptr(), len(table), total, out.data_ptr(), stream)
     _build.check(rc, "bitplane_decode_grouped")
-    LAUNCHES.add(device=device, kernel=1, blocks=total)
+    LAUNCHES.add(device=device, kernel=1, work=total)
     return out, offsets
 
 

@@ -1484,7 +1484,7 @@ def lcs_walk(lists: list[HitList], rows: torch.Tensor,
         arg.span = h.span
         arg.key_mask = h.key_mask
     _launch("lcs_walk", a, _WALK_SIZES, dev)
-    WALK_LAUNCHES.add(kernel=1, positions=size)
+    WALK_LAUNCHES.add(kernel=1)
     return out
 
 
@@ -1633,7 +1633,7 @@ def pos_walk(table: PosTable, hit_rowid: torch.Tensor,
             m.key = key0 + 4 * st
             m.n = min(int(hit_lengths[s]), m.hb)
     _launch("pos_walk", a, _POS_SIZES, dev)
-    POS_WALK_LAUNCHES.add(kernel=1, positions=table.n_ok)
+    POS_WALK_LAUNCHES.add(kernel=1)
     match = tf > 0
     return [(match[k], tf[k], ok[o:o + n], None if w < 0 else a_w[w:w + n])
             for k, (o, w, n) in enumerate(table.parts)]

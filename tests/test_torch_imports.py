@@ -1,12 +1,13 @@
 """The port imports neither jax nor the JAX package.
 
 The machine with the GPU has no JAX installed, and the port stands on its
-own: no module of ``manticoresearch_tpu_torch`` and not ``chip_smoke.py``
-may import ``jax``, ``jaxlib``, ``manticoresearch_tpu`` (even a module of
-it that does not import jax) or ``bench``, at any level of the file (an
-AST scan of every import statement, function bodies included); nor may
-``tests/_torch_golden.py``, which runs the golden harness on the port. The JAX
-package's own import chain to jax is still computed from its module-level
+own: no module of ``manticoresearch_tpu_torch`` and neither
+``chip_smoke.py`` nor ``chip_walks.py`` may import ``jax``, ``jaxlib``,
+``manticoresearch_tpu`` (even a module of it that does not import jax) or
+``bench``, at any level of the file (an AST scan of every import
+statement, function bodies included); nor may ``tests/_torch_golden.py``,
+which runs the golden harness on the port. The JAX package's own import
+chain to jax is still computed from its module-level
 imports, not from a hard-coded list. A subprocess in which importing any
 of those names raises then imports the port and ``chip_smoke``, builds an
 index with the port's builder and runs one query on the CPU, on one index,
@@ -114,7 +115,8 @@ def test_jax_chain_is_computed():
 def test_port_imports_nothing_that_reaches_jax():
     reach = _jax_reaching_modules()
     files = _files("manticoresearch_tpu_torch") + [
-        REPO / "chip_smoke.py", REPO / "tests" / "_torch_golden.py"]
+        REPO / "chip_smoke.py", REPO / "chip_walks.py",
+        REPO / "tests" / "_torch_golden.py"]
     assert len(files) >= 20
     port = REPO / "manticoresearch_tpu_torch"
     assert {port / "parallel" / "sharded.py", port / "index" / "rt.py",
